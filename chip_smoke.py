@@ -8,7 +8,9 @@ Phases, each printed as one JSON line; any failure exits non-zero:
 1. device      the card, nvidia-smi's name and power limit, versions, TF32 off.
 2. build       nvcc builds ops/csrc/block_chain.cu from the checkout.
 3. kernel_shapes the other sizes ``auto`` sends to the kernels (n = 10, 11,
-               12 with 3 layers; B = 37 and B = 1) against the plain
+               12 with 3 layers; B = 37 and B = 1), and uneven block splits
+               (a 128-wide block: the backward's matrix cotangent then has
+               more 4x4 tiles than the CTA has threads) against the plain
                versions, same limits as below.
 4. kernels     every block-chain kernel at the main path's shapes (12 qubits,
                B = 6144 stream rows and B = 682 value rows) against its plain
@@ -130,28 +132,30 @@ def main():
     # -- 3. the other shapes auto sends to the kernels (10 <= n <= 12) ----
     gen = torch.Generator(device=dev).manual_seed(7)
     shape_errs = {}
-    for n, layers, b in ((10, 1, 37), (11, 1, 37), (12, 3, 37), (12, 1, 1)):
-        eng = bk.BlockKernelCircuit(DVCircuit(n, layers, "cross_mesh", seed=42))
+    for n, layers, hb, b in ((10, 1, None, 37), (11, 1, None, 37),
+                             (12, 3, None, 37), (12, 1, None, 1),
+                             (12, 1, 7, 37), (12, 1, 5, 37), (10, 1, 7, 37)):
+        eng = bk.BlockKernelCircuit(DVCircuit(n, layers, "cross_mesh", seed=42),
+                                    hi_bits=hb)
         p = 0.3 * torch.randn(eng.circuit.num_params, generator=gen, device=dev)
         with torch.no_grad():
-            ms, ph = bk.split_flat(eng.plan, eng.kernel_inputs(p))
+            m, ph = eng.kernel_inputs(p)
         hh, ll = 1 << eng.plan.hb, 1 << eng.plan.lb
         x = torch.randn(4, b, hh, ll, generator=gen, device=dev)
         nrm = torch.sqrt((x[0]**2 + x[1]**2).sum(dim=(1, 2), keepdim=True))
         xr, xi, gr, gi = (x[0] / nrm), (x[1] / nrm), x[2], x[3]
-        mct = [(a.t(), -c.t()) for a, c in ms]
-        got = bk.block_chain_fwd(xr, xi, ms, ph, eng.plan)
-        want = bk.block_chain_fwd_ref(xr, xi, ms, ph, eng.plan)
+        mct = bk.conj_transpose(eng.plan, m)
+        got = bk.block_chain_fwd(xr, xi, m, ph, eng.plan)
+        want = bk.block_chain_fwd_ref(xr, xi, m, ph, eng.plan)
         e_fwd = max((a - r).abs().max().item() for a, r in zip(got, want))
         got = bk.block_chain_bwd(*got, gr.contiguous(), gi.contiguous(), mct, ph, eng.plan)
         want = bk.block_chain_bwd_ref(*want, gr, gi, mct, ph, eng.plan)
-        flat_got = [got[0], got[1], *[t for pr in got[2] + got[3] for t in pr]]
-        flat_want = [want[0], want[1], *[t for pr in want[2] + want[3] for t in pr]]
         e_bwd = max((a - r).abs().max().item() / r.abs().max().item()
-                    for a, r in zip(flat_got, flat_want))
+                    for a, r in zip(got, want))
+        tag = f"n{n}_hb{eng.plan.hb}_layers{layers}_B{b}"
         if not (e_fwd <= FWD_TOL and e_bwd <= BWD_RTOL):
-            raise SystemExit(f"n={n} layers={layers} B={b}: fwd {e_fwd} bwd {e_bwd}")
-        shape_errs[f"n{n}_layers{layers}_B{b}"] = {"fwd_abs": e_fwd, "bwd_rel": e_bwd}
+            raise SystemExit(f"{tag}: fwd {e_fwd} bwd {e_bwd}")
+        shape_errs[tag] = {"fwd_abs": e_fwd, "bwd_rel": e_bwd}
     emit({"phase": "kernel_shapes", "results": shape_errs})
 
     # -- 4. kernels vs plain versions at the main path's shapes ------------
@@ -160,12 +164,12 @@ def main():
     plan = eng.plan
     params = 0.3 * torch.randn(circ.num_params, generator=gen, device=dev)
     with torch.no_grad():
-        flat = [t.contiguous() for t in eng.kernel_inputs(params)]
-    mats, phases = bk.split_flat(plan, flat)
-    matcts = [(mr.t().contiguous(), (-mi.t()).contiguous()) for mr, mi in mats]
+        m, p = eng.kernel_inputs(params)
+    mct = bk.conj_transpose(plan, m)
+    mats, phases = bk.unpack(plan, m, p)
     h, l = 1 << plan.hb, 1 << plan.lb
-    mats_bytes = 4 * sum(t.numel() for t in flat[: 2 * plan.n_mats])
-    ph_bytes = 4 * sum(t.numel() for t in flat[2 * plan.n_mats:])
+    mats_bytes = 4 * m.numel()
+    ph_bytes = 4 * p.numel()
     mat_flops = sum(8 * h * l * plan.mat_dim(i) for i in range(plan.n_mats))
 
     def lib_chain(xc, mats_c, ph_c):
@@ -191,8 +195,8 @@ def main():
         gi = torch.randn(b, h, l, generator=gen, device=dev)
 
         # K1 forward
-        yr, yi = bk.block_chain_fwd(xr, xi, mats, phases, plan)
-        ryr, ryi = bk.block_chain_fwd_ref(xr, xi, mats, phases, plan)
+        yr, yi = bk.block_chain_fwd(xr, xi, m, p, plan)
+        ryr, ryi = bk.block_chain_fwd_ref(xr, xi, m, p, plan)
         torch.cuda.synchronize()
         err = max((yr - ryr).abs().max().item(), (yi - ryi).abs().max().item())
         if not err <= FWD_TOL:
@@ -203,24 +207,27 @@ def main():
                         4 * state_bytes + mats_bytes + ph_bytes, card_peaks)
         per_kernel["block_chain_fwd"][b] = {
             "max_abs_err": err, "tol": FWD_TOL,
-            "ms": time_ms(lambda: bk.block_chain_fwd(xr, xi, mats, phases, plan)),
+            "ms": time_ms(lambda: bk.block_chain_fwd(xr, xi, m, p, plan)),
             "plain_ms": time_ms(
-                lambda: bk.block_chain_fwd_ref(xr, xi, mats, phases, plan)),
+                lambda: bk.block_chain_fwd_ref(xr, xi, m, p, plan)),
             "library_ms": time_ms(lambda: lib_chain(xc, mats_c, ph_c)),
             "bound_ms": fb, "bound_by": fby,
         }
 
         # K2 backward (kernel alone) + the reduction
         gxr, gxi, partials = bk.block_chain_bwd_partials(
-            yr, yi, gr, gi, matcts, phases, plan)
+            yr, yi, gr, gi, mct, p, plan)
         red = bk.block_chain_reduce(partials)
-        out = bk.block_chain_bwd_ref(ryr, ryi, gr, gi, matcts, phases, plan)
+        out = bk.block_chain_bwd_ref(ryr, ryi, gr, gi, mct, p, plan)
         red_ref = bk.block_chain_reduce_ref(partials)
-        got = bk.block_chain_bwd(yr, yi, gr, gi, matcts, phases, plan)
+        got = bk.block_chain_bwd(yr, yi, gr, gi, mct, p, plan)
         torch.cuda.synchronize()
+        # gx, then each mat's and each phase plane's cotangent on its own
+        got_m, got_p = bk.unpack(plan, got[2], got[3])
+        out_m, out_p = bk.unpack(plan, out[2], out[3])
         pairs = [(got[0], out[0]), (got[1], out[1])]
-        pairs += [(a, r) for ga, ra in zip(got[2], out[2]) for a, r in zip(ga, ra)]
-        pairs += [(a, r) for ga, ra in zip(got[3], out[3]) for a, r in zip(ga, ra)]
+        pairs += [(a, r) for ga, ra in zip(got_m + got_p, out_m + out_p)
+                  for a, r in zip(ga, ra)]
         worst, err = 0.0, 0.0
         for a, r in pairs:
             e = (a - r).abs().max().item()
@@ -244,19 +251,22 @@ def main():
         mg = [m.clone().requires_grad_(True) for m in mats_c]
         pg = [p.clone().requires_grad_(True) for p in ph_c]
         gc = torch.complex(gr, gi)
+        # the library's backward alone: its graph is built once, outside
+        # the timed calls, as the kernel's forward is outside K2's time
+        y_lib = lib_chain(xg, mg, pg)
 
         def lib_bwd():
-            y = lib_chain(xg, mg, pg)
-            return torch.autograd.grad(y, [xg, *mg, *pg], grad_outputs=gc)
+            return torch.autograd.grad(y_lib, [xg, *mg, *pg], grad_outputs=gc,
+                                       retain_graph=True)
 
         per_kernel["block_chain_bwd"][b] = {
             "max_abs_err": err, "max_rel_err": worst, "tol": f"{BWD_RTOL}*max|ref|",
             "ms": time_ms(lambda: bk.block_chain_bwd_partials(
-                yr, yi, gr, gi, matcts, phases, plan)),
+                yr, yi, gr, gi, mct, p, plan)),
             "plain_ms": time_ms(lambda: bk.block_chain_bwd_ref(
-                ryr, ryi, gr, gi, matcts, phases, plan)),
+                ryr, ryi, gr, gi, mct, p, plan)),
             "library_ms": time_ms(lib_bwd),
-            "library": "forward + autograd backward of the complex einsum chain",
+            "library": "autograd backward alone of the complex einsum chain",
             "bound_ms": bb, "bound_by": bby, "grid": partials.shape[0],
         }
         g = partials.shape[0]

@@ -11,8 +11,9 @@ At 12 qubits the evolution runs in the CUDA block-chain kernels
 
     python -m qcpinn_tpu_torch.bench [--backend block] [--profile]
 
-runs a warm-up of 30 steps, then 3 timed runs of 30 steps, and prints one
-JSON line: metric, value (points/sec, median run), unit, the card's name
+runs a warm-up of 30 steps, then times 3 x 30 steps as one window, and
+prints one JSON line: metric, value (points/sec over the whole window:
+all the steps over all the time), unit, the card's name
 and power limit, and the engine. ``--backend`` picks another engine for an
 A/B on the same card; ``--profile`` adds a line with the device time per
 step by kernel (torch.profiler). The loop is plain eager PyTorch.
@@ -23,8 +24,6 @@ from __future__ import annotations
 import json
 import subprocess
 import time
-from typing import Optional
-
 import torch
 
 from . import resolve_device
@@ -98,7 +97,6 @@ def build(
     seed: int = 42,
     lr: float = 5e-3,
     device=None,
-    generator: Optional[torch.Generator] = None,
 ) -> Trainer:
     """The bench configuration on ``device`` (default: the card; raises
     without CUDA)."""
@@ -112,26 +110,24 @@ def build(
         lr=lr,
         seed=seed,
     )
-    model = DVFourierSolver(cfg, device=device, generator=generator)
+    model = DVFourierSolver(cfg, device=device)
     model.use_fused(backend)
     return Trainer(model, batch, lr, seed)
 
 
 def run(trainer: Trainer, steps: int = 30, trials: int = 3) -> float:
-    """Warm-up run, then ``trials`` timed runs of ``steps`` steps; returns
-    the median seconds per step."""
+    """A warm-up of ``steps`` steps, then ``trials * steps`` timed steps in
+    one window; returns the window's seconds per step, so a stall anywhere
+    in it counts."""
     for _ in range(steps):
         trainer.step()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(trials):
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            loss = trainer.step()
-        float(loss)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) / steps)
-    return sorted(times)[len(times) // 2]
+    t0 = time.perf_counter()
+    for _ in range(trials * steps):
+        loss = trainer.step()
+    float(loss)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / (trials * steps)
 
 
 def profile(trainer: Trainer, steps: int = 5, top: int = 12) -> dict:

@@ -13,7 +13,6 @@ the quantum block. ``model(x)`` is the JAX package's
 from __future__ import annotations
 
 import math
-from typing import Optional
 
 import torch
 from torch import nn
@@ -32,7 +31,6 @@ class DVFourierSolver(nn.Module):
         ff_scale: float = 4.0,
         skip_dim: int = 32,
         device=None,
-        generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
         device = resolve_device(device)
@@ -49,8 +47,7 @@ class DVFourierSolver(nn.Module):
             encoding="angle",
             seed=config.seed,
         )
-        if generator is None:
-            generator = torch.Generator().manual_seed(config.seed)
+        generator = torch.Generator().manual_seed(config.seed)
         ff_gen = torch.Generator().manual_seed(config.seed)
         # stop_gradient'd in the JAX package: a buffer, not a parameter
         self.register_buffer(

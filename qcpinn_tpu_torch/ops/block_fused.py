@@ -128,31 +128,25 @@ class BlockFusedCircuit:
     """Block-fused exact-expectation circuit: [B, n_feat] -> [B, n].
 
     ``hi_bits`` defaults to a balanced split. ``merge`` selects the
-    chain-shortened segment chain (default) or the raw one. ``precision``
-    is the state-einsum precision; the port runs full f32 only (TF32 is
-    off package-wide), so "highest" is the one value it takes."""
+    chain-shortened segment chain (default) or the raw one. The JAX
+    engine's ``precision`` argument is not carried over: the port's state
+    einsums always run in full f32 (TF32 is off package-wide, see
+    ``qcpinn_tpu_torch/__init__.py``)."""
 
     def __init__(
         self,
         circuit: DVCircuit,
         hi_bits: Optional[int] = None,
-        precision: str = "highest",
         merge: bool = True,
     ):
         n = circuit.n
         if n < 2:
             raise ValueError("block fusion needs n >= 2")
-        if precision != "highest":
-            raise ValueError(
-                f"precision {precision!r} is not ported; the port computes "
-                "in full f32 ('highest')"
-            )
         self.circuit = circuit
         self.hb = hi_bits if hi_bits is not None else (n + 1) // 2
         if not 1 <= self.hb < n:
             raise ValueError(f"hi_bits {self.hb} out of range for n={n}")
         self.lb = n - self.hb
-        self.precision = precision
         self.segments_raw = compile_segments(circuit, self.hb)
         self.segments = (
             merge_block_segments(

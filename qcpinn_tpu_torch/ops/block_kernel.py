@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import os
 import shutil
@@ -55,6 +56,7 @@ from .circuit import DVCircuit
 
 MAX_QUBITS = 12  # one sample's state must fit in one CTA's shared memory
 MAX_STEPS = 128  # QC_MAX_STEPS in csrc/block_chain.cu
+SMEM_LIMIT = 227 * 1024  # opt-in dynamic shared memory per CTA on sm_90
 
 _SRC = os.path.join(os.path.dirname(__file__), "csrc", "block_chain.cu")
 _BUILD_DIR = os.path.join(os.path.dirname(__file__), "csrc", "_build")
@@ -152,6 +154,55 @@ def supports(circuit: DVCircuit, hi_bits: Optional[int] = None) -> bool:
     return all(seg.kind != "op" for seg in probe.segments)
 
 
+# -- packed inputs -------------------------------------------------------------
+#
+# The kernels take their small inputs packed, as the C interface does: ``m``
+# holds each mat's re [K, K] then im [K, K] in plan order, and ``p`` holds
+# each diag's cos [H, L] then sin [H, L]. The cotangent slab of the backward
+# is ``m``'s layout followed by ``p``'s.
+
+
+def _unpack(flat: torch.Tensor, sizes: Sequence[Tuple[int, int]]):
+    out, off = [], 0
+    for d1, d2 in sizes:
+        n = d1 * d2
+        out.append((flat[off : off + n].view(d1, d2),
+                    flat[off + n : off + 2 * n].view(d1, d2)))
+        off += 2 * n
+    return out
+
+
+def unpack(plan: KPlan, m: torch.Tensor, p: torch.Tensor):
+    """Views of packed mats and phases (or their cotangents) as (re, im)
+    [K, K] and (cos, sin) [H, L] pairs in plan order."""
+    mats = _unpack(m, [(plan.mat_dim(i),) * 2 for i in range(plan.n_mats)])
+    phases = _unpack(p, [(1 << plan.hb, 1 << plan.lb)] * plan.n_diags)
+    return mats, phases
+
+
+def _pack(pairs) -> torch.Tensor:
+    return torch.cat([t.reshape(-1) for pair in pairs for t in pair])
+
+
+@functools.lru_cache(maxsize=None)
+def _conj_transpose_index(plan: KPlan, device: torch.device):
+    perm, sign, off = [], [], 0
+    for i in range(plan.n_mats):
+        k = plan.mat_dim(i)
+        t = np.arange(k * k).reshape(k, k).T.reshape(-1)
+        perm += [off + t, off + k * k + t]
+        sign += [np.ones(k * k), -np.ones(k * k)]
+        off += 2 * k * k
+    return (torch.as_tensor(np.concatenate(perm), device=device),
+            torch.as_tensor(np.concatenate(sign), dtype=torch.float32, device=device))
+
+
+def conj_transpose(plan: KPlan, m: torch.Tensor) -> torch.Tensor:
+    """Packed conj(M)^T of packed mats: what the backward takes."""
+    perm, sign = _conj_transpose_index(plan, m.device)
+    return m[perm] * sign
+
+
 # -- plain PyTorch versions ----------------------------------------------------
 
 
@@ -166,11 +217,11 @@ def _contract(sr, si, mr, mi, axis: str):
     return dot(sr, mr) - dot(si, mi), dot(sr, mi) + dot(si, mr)
 
 
-def block_chain_fwd_ref(xr, xi, mats, phases, plan: KPlan):
-    """Plain version of the forward kernel. xr/xi: [B, H, L] f32; mats:
-    (re, im) [K, K] pairs in plan order; phases: (cos, sin) [H, L] pairs.
-    Returns (yr, yi) [B, H, L]."""
+def block_chain_fwd_ref(xr, xi, m, p, plan: KPlan):
+    """Plain version of the forward kernel. xr/xi: [B, H, L] f32; m, p:
+    packed mats and phases. Returns (yr, yi) [B, H, L]."""
     LAUNCHES["block_chain_fwd_ref"] += 1
+    mats, phases = unpack(plan, m, p)
     sr, si = xr, xi
     for st in plan.steps:
         if st.kind == "mat":
@@ -181,12 +232,14 @@ def block_chain_fwd_ref(xr, xi, mats, phases, plan: KPlan):
     return sr, si
 
 
-def block_chain_bwd_ref(yr, yi, gr, gi, matcts, phases, plan: KPlan):
+def block_chain_bwd_ref(yr, yi, gr, gi, mct, p, plan: KPlan):
     """Plain version of the backward kernel: reverse sweep from the final
-    state y with output cotangent g. ``matcts`` are conj(M)^T pairs.
-    Returns (gxr, gxi, gmats, gphases): gmats in forward M[in, out]
-    orientation, gphases [H, L]."""
+    state y with output cotangent g. ``mct`` is the packed conj(M)^T
+    (:func:`conj_transpose`). Returns (gxr, gxi, gm, gp): the input
+    cotangent and the packed cotangents of the forward's m (M[in, out]
+    orientation) and p."""
     LAUNCHES["block_chain_bwd_ref"] += 1
+    matcts, phases = unpack(plan, mct, p)
     sr, si, qr, qi = yr, yi, gr, gi
     gmats: List = [None] * plan.n_mats
     gphases: List = [None] * plan.n_diags
@@ -208,7 +261,7 @@ def block_chain_bwd_ref(yr, yi, gr, gi, matcts, phases, plan: KPlan):
                 torch.sum(-qr * si + qi * sr, dim=0),
             )
             qr, qi = c * qr + s * qi, c * qi - s * qr
-    return qr, qi, gmats, gphases
+    return qr, qi, _pack(gmats), _pack(gphases)
 
 
 def block_chain_reduce_ref(partials: torch.Tensor) -> torch.Tensor:
@@ -288,10 +341,10 @@ def _raise_on(lib, err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
 
 
+@functools.lru_cache(maxsize=None)
 def _step_table(plan: KPlan) -> Tuple[np.ndarray, int]:
     """[n_steps, 3] int32 (kind, axis, float offset into the packed mats or
-    phases) and the packed mats' length. The cotangent slab has the same
-    layout: gmats at the mats' offsets, then gphases."""
+    phases) and the packed mats' length; built once per plan."""
     mat_off, off = [], 0
     for idx in range(plan.n_mats):
         mat_off.append(off)
@@ -306,11 +359,19 @@ def _step_table(plan: KPlan) -> Tuple[np.ndarray, int]:
     return np.ascontiguousarray(rows, dtype=np.int32).reshape(-1, 3), off
 
 
-def _pack(pairs) -> torch.Tensor:
-    return torch.cat([t.reshape(-1) for pair in pairs for t in pair]).contiguous()
+def smem_bytes(plan: KPlan, state_planes: int) -> int:
+    """Dynamic shared memory of one CTA (smem_bytes in csrc/block_chain.cu):
+    2 state planes forward, 4 backward, plus one [K, K + 1] re/im matrix."""
+    h, l = 1 << plan.hb, 1 << plan.lb
+    km = max(h, l)
+    return 4 * (state_planes * h * (l + 1) + 2 * km * (km + 1))
 
 
-def _check_cuda(plan: KPlan, *tensors: torch.Tensor) -> None:
+def check_plan(plan: KPlan) -> None:
+    """Raise unless the CUDA kernels can run ``plan``: one sample's state
+    in one CTA (n <= 12, so 256 threads hold 4x4 tiles of [H, L]), blocks
+    of >= 2 qubits (4-wide tiles), and the backward's shared memory within
+    the per-CTA limit (a lopsided split needs a [K, K] matrix too large)."""
     if plan.n > MAX_QUBITS:
         raise ValueError(
             f"block_chain kernels take n <= {MAX_QUBITS} (one sample per "
@@ -320,12 +381,29 @@ def _check_cuda(plan: KPlan, *tensors: torch.Tensor) -> None:
         raise ValueError("block_chain kernels need both blocks >= 2 qubits")
     if len(plan.steps) > MAX_STEPS:
         raise ValueError(f"plan has {len(plan.steps)} steps > {MAX_STEPS}")
-    shape = (tensors[0].shape[0], 1 << plan.hb, 1 << plan.lb)
-    for t in tensors:
+    need = smem_bytes(plan, 4)
+    if need > SMEM_LIMIT:
+        raise ValueError(
+            f"block split {plan.hb}/{plan.lb} needs {need} B of shared "
+            f"memory per CTA > {SMEM_LIMIT}"
+        )
+
+
+def _check_cuda(plan: KPlan, states, m: torch.Tensor, p: torch.Tensor) -> None:
+    check_plan(plan)
+    shape = (states[0].shape[0], 1 << plan.hb, 1 << plan.lb)
+    sizes = (_step_table(plan)[1], 2 * plan.n_diags * (1 << plan.n))
+    for t in (*states, m, p):
         if t.device.type != "cuda" or t.dtype != torch.float32:
             raise ValueError("block_chain kernels take CUDA float32 tensors")
-        if tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f"expected contiguous {shape}, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError("block_chain kernels take contiguous tensors")
+    for t in states:
+        if tuple(t.shape) != shape:
+            raise ValueError(f"expected {shape}, got {tuple(t.shape)}")
+    if (m.numel(), p.numel()) != sizes:
+        raise ValueError(f"packed mats/phases: expected {sizes} floats, got "
+                         f"{(m.numel(), p.numel())}")
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -337,18 +415,17 @@ def _on_cpu(t: torch.Tensor) -> bool:
     return False
 
 
-def block_chain_fwd(xr, xi, mats, phases, plan: KPlan):
+def block_chain_fwd(xr, xi, m, p, plan: KPlan):
     """Forward kernel wrapper; same contract as :func:`block_chain_fwd_ref`."""
     if _on_cpu(xr):
-        return block_chain_fwd_ref(xr, xi, mats, phases, plan)
-    _check_cuda(plan, xr, xi)
+        return block_chain_fwd_ref(xr, xi, m, p, plan)
+    _check_cuda(plan, (xr, xi), m, p)
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
     b = xr.shape[0]
     if b == 0:
         return yr, yi
     lib = _lib()
     steps, _ = _step_table(plan)
-    m, p = _pack(mats), _pack(phases)
     err = lib.qc_block_chain_fwd(
         xr.data_ptr(), xi.data_ptr(), m.data_ptr(), p.data_ptr(),
         yr.data_ptr(), yi.data_ptr(), b, 1 << plan.hb, 1 << plan.lb,
@@ -358,16 +435,6 @@ def block_chain_fwd(xr, xi, mats, phases, plan: KPlan):
     _raise_on(lib, err, "block_chain_fwd")
     LAUNCHES["block_chain_fwd"] += 1
     return yr, yi
-
-
-def _unpack(flat: torch.Tensor, sizes: Sequence[Tuple[int, int]]):
-    out, off = [], 0
-    for d1, d2 in sizes:
-        n = d1 * d2
-        out.append((flat[off : off + n].view(d1, d2),
-                    flat[off + n : off + 2 * n].view(d1, d2)))
-        off += 2 * n
-    return out, off
 
 
 def grid_size(device: torch.device, b: int) -> int:
@@ -395,25 +462,24 @@ def block_chain_reduce(partials: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def block_chain_bwd_partials(yr, yi, gr, gi, matcts, phases, plan: KPlan):
+def block_chain_bwd_partials(yr, yi, gr, gi, mct, p, plan: KPlan):
     """Backward kernel alone (CUDA tensors only): returns (gxr, gxi,
     partials [G, slab]); :func:`block_chain_reduce` finishes the batch
     sums."""
-    _check_cuda(plan, yr, yi, gr, gi)
+    _check_cuda(plan, (yr, yi, gr, gi), mct, p)
     h, l = 1 << plan.hb, 1 << plan.lb
     b = yr.shape[0]
     if b == 0:
         raise ValueError("block_chain_bwd needs a non-empty batch")
     lib = _lib()
     steps, mats_total = _step_table(plan)
-    slab = mats_total + 2 * h * l * plan.n_diags
+    slab = mats_total + p.numel()
     gxr, gxi = torch.empty_like(yr), torch.empty_like(yi)
-    m, p = _pack(matcts), _pack(phases)
     g = grid_size(yr.device, b)
     partials = torch.empty((g, slab), dtype=torch.float32, device=yr.device)
     err = lib.qc_block_chain_bwd(
         yr.data_ptr(), yi.data_ptr(), gr.data_ptr(), gi.data_ptr(),
-        m.data_ptr(), p.data_ptr(), gxr.data_ptr(), gxi.data_ptr(),
+        mct.data_ptr(), p.data_ptr(), gxr.data_ptr(), gxi.data_ptr(),
         partials.data_ptr(), slab, mats_total, b, h, l,
         steps.ctypes.data, len(plan.steps), g,
         torch.cuda.current_stream(yr.device).cuda_stream,
@@ -423,61 +489,42 @@ def block_chain_bwd_partials(yr, yi, gr, gi, matcts, phases, plan: KPlan):
     return gxr, gxi, partials
 
 
-def block_chain_bwd(yr, yi, gr, gi, matcts, phases, plan: KPlan):
+def block_chain_bwd(yr, yi, gr, gi, mct, p, plan: KPlan):
     """Backward kernel wrapper (the kernel, then the slab reduction); same
     contract as :func:`block_chain_bwd_ref`."""
     if _on_cpu(yr):
-        return block_chain_bwd_ref(yr, yi, gr, gi, matcts, phases, plan)
-    gxr, gxi, partials = block_chain_bwd_partials(
-        yr, yi, gr, gi, matcts, phases, plan
-    )
+        return block_chain_bwd_ref(yr, yi, gr, gi, mct, p, plan)
+    gxr, gxi, partials = block_chain_bwd_partials(yr, yi, gr, gi, mct, p, plan)
     out = block_chain_reduce(partials)
-    # the slab holds gmats at the packed mats' offsets, then gphases
-    gmats, mats_total = _unpack(
-        out, [(plan.mat_dim(i),) * 2 for i in range(plan.n_mats)]
-    )
-    hl = (1 << plan.hb, 1 << plan.lb)
-    gphases, _ = _unpack(out[mats_total:], [hl] * plan.n_diags)
-    return gxr, gxi, gmats, gphases
+    # the slab is the packed mats' layout followed by the phases'
+    return gxr, gxi, out[: mct.numel()], out[mct.numel() :]
 
 
 # -- autograd boundary ---------------------------------------------------------
 
 
-def split_flat(plan: KPlan, flat):
-    """The flat kernel inputs (or their cotangents) as (mats, phases) pairs
-    in plan order."""
-    mats = [(flat[2 * i], flat[2 * i + 1]) for i in range(plan.n_mats)]
-    o = 2 * plan.n_mats
-    phases = [(flat[o + 2 * i], flat[o + 2 * i + 1]) for i in range(plan.n_diags)]
-    return mats, phases
-
-
 class BlockChain(torch.autograd.Function):
     """Split re/im float tensors in and out (no complex at the boundary, so
-    torch's and JAX's complex-gradient conventions never meet). ``flat`` is
-    the mats' (re, im) then the phases' (cos, sin), in plan order."""
+    torch's and JAX's complex-gradient conventions never meet); ``m`` and
+    ``p`` are the packed mats and phases."""
 
     @staticmethod
-    def forward(ctx, plan: KPlan, xr, xi, *flat):
-        mats, phases = split_flat(plan, flat)
-        yr, yi = block_chain_fwd(xr, xi, mats, phases, plan)
+    def forward(ctx, plan: KPlan, xr, xi, m, p):
+        yr, yi = block_chain_fwd(xr, xi, m, p, plan)
         ctx.plan = plan
-        ctx.save_for_backward(yr, yi, *flat)
+        ctx.save_for_backward(yr, yi, m, p)
         return yr, yi
 
     @staticmethod
     def backward(ctx, gyr, gyi):
-        yr, yi, *flat = ctx.saved_tensors
-        mats, phases = split_flat(ctx.plan, flat)
+        yr, yi, m, p = ctx.saved_tensors
         # conj-transposed matrices: one matrix serves input recovery and
         # cotangent pullback
-        matcts = [(mr.t(), -mi.t()) for mr, mi in mats]
-        gxr, gxi, gmats, gphases = block_chain_bwd(
-            yr, yi, gyr.contiguous(), gyi.contiguous(), matcts, phases, ctx.plan
+        gxr, gxi, gm, gp = block_chain_bwd(
+            yr, yi, gyr.contiguous(), gyi.contiguous(),
+            conj_transpose(ctx.plan, m), p, ctx.plan,
         )
-        grads = [t for pair in list(gmats) + list(gphases) for t in pair]
-        return (None, gxr, gxi, *grads)
+        return None, gxr, gxi, gm, gp
 
 
 class BlockKernelCircuit(BlockFusedCircuit):
@@ -491,26 +538,26 @@ class BlockKernelCircuit(BlockFusedCircuit):
         super().__init__(circuit, hi_bits=hi_bits, merge=False)
         self.plan = build_plan(self.segments, circuit.n, self.hb)
 
-    def kernel_inputs(self, params) -> list:
-        """The kernels' small inputs, differentiable in ``params``: the
-        block unitaries' (re, im) then the phases' (cos, sin) [H, L], in
-        plan order."""
+    def kernel_inputs(self, params) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The kernels' packed small inputs (m, p), differentiable in
+        ``params``: the block unitaries' re then im [K, K], and the phases'
+        cos then sin [H, L], in plan order (:func:`unpack` reads them)."""
         lp = self._layer_params(params)
         h, l = 1 << self.hb, 1 << self.lb
-        flat = []
+        mats = []
         for si, axis in self.plan.mat_srcs:
             seg = self.segments[si]
             if axis == "hi":
-                m = _block_unitary(self.hb, seg.hi_prog, lp(seg.layer))
+                u = _block_unitary(self.hb, seg.hi_prog, lp(seg.layer))
             else:
-                m = _block_unitary(self.lb, seg.lo_prog, lp(seg.layer))
-            v = torch.view_as_real(m)
-            flat += [v[..., 0], v[..., 1]]
-        for si in self.plan.diag_srcs:
-            seg = self.segments[si]
-            phi = seg.run.phases(lp(seg.layer)).reshape(h, l)
-            flat += [torch.cos(phi), torch.sin(phi)]
-        return flat
+                u = _block_unitary(self.lb, seg.lo_prog, lp(seg.layer))
+            mats.append(torch.view_as_real(u).permute(2, 0, 1).reshape(-1))
+        phi = torch.stack([
+            self.segments[si].run.phases(lp(self.segments[si].layer)).reshape(h, l)
+            for si in self.plan.diag_srcs
+        ])
+        p = torch.stack([torch.cos(phi), torch.sin(phi)], dim=1).reshape(-1)
+        return torch.cat(mats), p
 
     def evolve(self, params, state):
         b = state.shape[0]

@@ -227,9 +227,11 @@ block_chain_bwd_kernel(const float* __restrict__ yr, const float* __restrict__ y
                 // input recovery: s_in = contract(s_out, conj(M)^T)
                 mat_step(sr, si, mr, mi, hi, H, L);
                 // dM[k][m] = sum over the other axis of conj(s_in) * g_out
+                // RK*RK tiles of 4x4; more tiles than threads once K > 64
+                // (an uneven split), so each thread walks its share
                 const int RK = K / 4;
-                if (tid < RK * RK) {
-                    const int ty = tid / RK, tx = tid - (tid / RK) * RK;
+                for (int t = tid; t < RK * RK; t += QC_THREADS) {
+                    const int ty = t / RK, tx = t - (t / RK) * RK;
                     float accr[4][4], acci[4][4];
                     if (hi)  // sum_l conj(s[k][l]) g[m][l]
                         cgemm_tile<true>(sr, si, S, 1, qr, qi, 1, S, L, RK, RK,
@@ -311,6 +313,25 @@ static size_t smem_bytes(int H, int L, int state_planes) {
            ((size_t)state_planes * H * (L + 1) + 2 * (size_t)KM * (KM + 1));
 }
 
+// Opt a kernel in to `smem` bytes of dynamic shared memory on the current
+// device. The attribute is fixed per plan shape, so it is set only when a
+// launch needs more than was set before on that device.
+#define QC_MAX_DEVICES 64
+static int opt_in_smem(const void* kernel, size_t smem, size_t* done) {
+    int dev = 0;
+    int err = (int)cudaGetDevice(&dev);
+    if (err) return err;
+    if (dev >= QC_MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+    if (smem <= done[dev]) return 0;
+    err = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (!err) done[dev] = smem;
+    return err;
+}
+
+static size_t fwd_smem_done[QC_MAX_DEVICES];
+static size_t bwd_smem_done[QC_MAX_DEVICES];
+
 extern "C" const char* qc_error_string(int err) {
     return cudaGetErrorString((cudaError_t)err);
 }
@@ -323,9 +344,7 @@ extern "C" int qc_block_chain_fwd(const float* xr, const float* xi,
     int err = fill_plan(&plan, steps, n_steps);
     if (err) return err;
     const size_t smem = smem_bytes(H, L, 2);
-    err = (int)cudaFuncSetAttribute(block_chain_fwd_kernel,
-                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    (int)smem);
+    err = opt_in_smem((const void*)block_chain_fwd_kernel, smem, fwd_smem_done);
     if (err) return err;
     block_chain_fwd_kernel<<<B, QC_THREADS, smem, (cudaStream_t)stream>>>(
         xr, xi, mats, phases, yr, yi, B, H, L, plan);
@@ -343,9 +362,7 @@ extern "C" int qc_block_chain_bwd(const float* yr, const float* yi,
     int err = fill_plan(&plan, steps, n_steps);
     if (err) return err;
     const size_t smem = smem_bytes(H, L, 4);
-    err = (int)cudaFuncSetAttribute(block_chain_bwd_kernel,
-                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    (int)smem);
+    err = opt_in_smem((const void*)block_chain_bwd_kernel, smem, bwd_smem_done);
     if (err) return err;
     block_chain_bwd_kernel<<<G, QC_THREADS, smem, (cudaStream_t)stream>>>(
         yr, yi, gr, gi, matcts, phases, gxr, gxi, partials, slab, mats_total,

@@ -70,43 +70,40 @@ def test_forward_ref_matches_jax(n, layers):
 
 
 def _kernel_case(n, b, seed):
-    """Unitary mats and phases from a real circuit, unit-norm states and a
-    random cotangent, as numpy."""
+    """Unitary mats and phases from a real circuit (packed, as the kernels
+    take them), unit-norm states and a random cotangent, as numpy."""
     jc, tc, eng = _pair(n)
     rng = np.random.default_rng(seed)
     params = rng.normal(scale=0.3, size=tc.num_params).astype(np.float32)
-    flat = [t.detach().numpy().copy() for t in eng.kernel_inputs(torch.as_tensor(params))]
+    m, p = (t.detach().numpy().copy() for t in eng.kernel_inputs(torch.as_tensor(params)))
     h, l = 1 << eng.plan.hb, 1 << eng.plan.lb
     st = _unit_states(rng, b, n).reshape(b, h, l)
     g = rng.normal(size=(2, b, h, l)).astype(np.float32)
-    return jc, eng.plan, flat, st.real.copy(), st.imag.copy(), g[0], g[1]
+    return jc, eng.plan, m, p, st.real.copy(), st.imag.copy(), g[0], g[1]
 
 
 @pytest.mark.parametrize("n", [4, 5, 6])
 def test_backward_ref_matches_jax_vjp(n):
-    jc, plan, flat, xr, xi, gr, gi = _kernel_case(n, 8, 100 + n)
+    jc, plan, m, p, xr, xi, gr, gi = _kernel_case(n, 8, 100 + n)
     T = torch.as_tensor
-    mats, phases = bk.split_flat(plan, [T(a) for a in flat])
-    yr, yi = bk.block_chain_fwd_ref(T(xr), T(xi), mats, phases, plan)
-    matcts = [(mr.t(), -mi.t()) for mr, mi in mats]
-    gxr, gxi, gmats, gphases = bk.block_chain_bwd_ref(
-        yr, yi, T(gr), T(gi), matcts, phases, plan)
+    yr, yi = bk.block_chain_fwd_ref(T(xr), T(xi), T(m), T(p), plan)
+    gxr, gxi, gm, gp = bk.block_chain_bwd_ref(
+        yr, yi, T(gr), T(gi), bk.conj_transpose(plan, T(m)), T(p), plan)
+    gmats, gphases = bk.unpack(plan, gm, gp)
+    mats, phases = bk.unpack(plan, T(m), T(p))
 
     # JAX: the Pallas kernel pair (interpret mode) through its custom VJP
     jplan = bp.BlockPallasCircuit(jc, interpret=True).plan
     fwd_layout = bp._diag_layouts(jplan)
-    jm = tuple((jnp.asarray(flat[2 * i]), jnp.asarray(flat[2 * i + 1]))
-               for i in range(plan.n_mats))
-    o = 2 * plan.n_mats
+    jm = tuple((jnp.asarray(a.numpy()), jnp.asarray(b_.numpy())) for a, b_ in mats)
 
     def orient(a, idx):  # [H, L] -> the JAX step's forward layout
         return a.T if fwd_layout[idx] != ("hi", "lo") else a
 
-    jph = tuple((jnp.asarray(orient(flat[o + 2 * i], i)),
-                 jnp.asarray(orient(flat[o + 2 * i + 1], i)))
-                for i in range(plan.n_diags))
+    jph = tuple((jnp.asarray(orient(c.numpy(), i)), jnp.asarray(orient(s.numpy(), i)))
+                for i, (c, s) in enumerate(phases))
     out, vjp = jax.vjp(
-        lambda a, b_, m, p: bp._run(jplan, True, a, b_, m, p),
+        lambda a, b_, m_, p_: bp._run(jplan, True, a, b_, m_, p_),
         jnp.asarray(xr), jnp.asarray(xi), jm, jph)
     np.testing.assert_allclose(yr.numpy(), np.asarray(out[0]), atol=2e-5)
     np.testing.assert_allclose(yi.numpy(), np.asarray(out[1]), atol=2e-5)
@@ -125,17 +122,13 @@ def test_backward_ref_matches_jax_vjp(n):
 def test_backward_ref_matches_autograd(n):
     """The reverse sweep (input recovery through conj(M)^T) equals torch
     autograd of the plain forward, which stores every intermediate."""
-    _, plan, flat, xr, xi, gr, gi = _kernel_case(n, 6, 200 + n)
-    leaves = [torch.tensor(a, requires_grad=True) for a in [xr, xi, *flat]]
-    mats, phases = bk.split_flat(plan, leaves[2:])
-    yr, yi = bk.block_chain_fwd_ref(leaves[0], leaves[1], mats, phases, plan)
+    _, plan, m, p, xr, xi, gr, gi = _kernel_case(n, 6, 200 + n)
+    leaves = [torch.tensor(a, requires_grad=True) for a in (xr, xi, m, p)]
+    yr, yi = bk.block_chain_fwd_ref(*leaves, plan)
     want = torch.autograd.grad((yr, yi), leaves, (torch.as_tensor(gr), torch.as_tensor(gi)))
-    matcts = [(mr.t(), -mi.t()) for mr, mi in mats]
-    gxr, gxi, gmats, gphases = bk.block_chain_bwd_ref(
+    got = bk.block_chain_bwd_ref(
         yr.detach(), yi.detach(), torch.as_tensor(gr), torch.as_tensor(gi),
-        [(a.detach(), b.detach()) for a, b in matcts],
-        [(a.detach(), b.detach()) for a, b in phases], plan)
-    got = [gxr, gxi] + [t for pair in list(gmats) + list(gphases) for t in pair]
+        bk.conj_transpose(plan, leaves[2].detach()), leaves[3].detach(), plan)
     for a, b in zip(got, want):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=3e-5)
 
@@ -145,23 +138,60 @@ def test_reduce_ref_and_slab_layout():
     parts = torch.as_tensor(rng.normal(size=(5, 37)).astype(np.float32))
     np.testing.assert_allclose(
         bk.block_chain_reduce_ref(parts).numpy(), parts.numpy().sum(0), atol=1e-6)
-    # the step table's offsets and the slab unpacking agree with the packing
-    _, plan, flat, *_ = _kernel_case(6, 1, 3)
+    # the step table's offsets, the unpacking and the conj-transpose agree
+    # with the packing
+    _, plan, m, p, *_ = _kernel_case(6, 1, 3)
     steps, mats_total = bk._step_table(plan)
     assert steps.shape == (len(plan.steps), 3)
-    packed = bk._pack(bk.split_flat(plan, [torch.as_tensor(a) for a in flat])[0])
-    assert packed.numel() == mats_total
-    unpacked, total = bk._unpack(packed, [(plan.mat_dim(i),) * 2 for i in range(plan.n_mats)])
-    assert total == mats_total
-    for i, (a, b) in enumerate(unpacked):
-        np.testing.assert_array_equal(a.numpy(), flat[2 * i])
-        np.testing.assert_array_equal(b.numpy(), flat[2 * i + 1])
+    assert m.size == mats_total
+    assert p.size == 2 * plan.n_diags * (1 << plan.n)
+    mats, phases = bk.unpack(plan, torch.as_tensor(m), torch.as_tensor(p))
+    np.testing.assert_array_equal(bk._pack(mats).numpy(), m)
+    np.testing.assert_array_equal(bk._pack(phases).numpy(), p)
+    for (c, s) in phases:  # unit phases
+        np.testing.assert_allclose((c**2 + s**2).numpy(), 1.0, atol=1e-6)
+    cts, _ = bk.unpack(plan, bk.conj_transpose(plan, torch.as_tensor(m)), torch.as_tensor(p))
+    for (mr, mi), (tr, ti) in zip(mats, cts):
+        np.testing.assert_array_equal(tr.numpy(), mr.t().numpy())
+        np.testing.assert_array_equal(ti.numpy(), -mi.t().numpy())
     for row, st in zip(steps, plan.steps):
         if st.kind == "mat":
             off = row[2]
             k = plan.mat_dim(st.idx)
             np.testing.assert_array_equal(
-                packed[off : off + k * k].numpy(), flat[2 * st.idx].reshape(-1))
+                m[off : off + k * k], mats[st.idx][0].reshape(-1).numpy())
+        else:
+            np.testing.assert_array_equal(
+                p[row[2] : row[2] + (1 << plan.n)], phases[st.idx][0].reshape(-1).numpy())
+
+
+def _one_step_plan(n, hb):
+    return bk.KPlan(n, hb, n - hb, (bk.KStep("mat", "hi", 0),), ((0, "hi"),), ())
+
+
+@pytest.mark.parametrize("n,hb,ok", [
+    (12, 6, True), (12, 7, True), (10, 3, True), (11, 4, True),
+    (12, 8, False), (12, 2, False), (10, 1, False), (13, 7, False),
+])
+def test_check_plan_limits(n, hb, ok):
+    """The CUDA wrappers refuse a plan the kernels cannot hold: more than
+    12 qubits, a 1-qubit block, or a split whose backward needs more shared
+    memory than a CTA has. Uneven splits within the limit are accepted."""
+    plan = _one_step_plan(n, hb)
+    if ok:
+        bk.check_plan(plan)
+        assert bk.smem_bytes(plan, 4) <= bk.SMEM_LIMIT
+    else:
+        with pytest.raises(ValueError):
+            bk.check_plan(plan)
+
+
+def test_smem_bytes_at_12_qubits():
+    # two state planes (fwd) or four (bwd) of [64, 65] plus a [64, 65]
+    # re/im matrix, in f32
+    plan = _one_step_plan(12, 6)
+    assert bk.smem_bytes(plan, 2) == 4 * (2 * 64 * 65 + 2 * 64 * 65)
+    assert bk.smem_bytes(plan, 4) == 4 * (4 * 64 * 65 + 2 * 64 * 65)
 
 
 @pytest.mark.parametrize("n", [4, 6])

@@ -113,13 +113,14 @@ def test_kernel_wrappers_refuse_unsupported_cuda_work():
     """The CUDA-side checks run before any library is loaded."""
     plan = bk.BlockKernelCircuit(DVCircuit(13, 1, "cross_mesh")).plan
     x = torch.zeros(2, 1 << plan.hb, 1 << plan.lb)
+    e = torch.zeros(0)
     with pytest.raises(ValueError, match="n <= 12"):
-        bk._check_cuda(plan, x, x)
+        bk._check_cuda(plan, (x, x), e, e)
     plan12 = bk.BlockKernelCircuit(DVCircuit(12, 1, "cross_mesh", seed=42)).plan
     with pytest.raises(ValueError, match="CUDA float32"):
-        bk._check_cuda(plan12, torch.zeros(2, 64, 64), torch.zeros(2, 64, 64))
+        bk._check_cuda(plan12, (torch.zeros(2, 64, 64),) * 2, e, e)
     with pytest.raises(ValueError, match="unsupported device"):
-        bk.block_chain_fwd(torch.zeros(1, 64, 64, device="meta"), None, [], [], plan12)
+        bk.block_chain_fwd(torch.zeros(1, 64, 64, device="meta"), None, e, e, plan12)
 
 
 def test_cpu_tensors_take_the_plain_version():
