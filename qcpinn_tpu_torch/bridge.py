@@ -2,8 +2,9 @@
 ``DVFourierSolver`` module, so one set of weights drives both packages.
 
 JAX tree: ``{"ff": {"B"}, "pre": [{w, b}, ...], "skip": [{w, b}],
-"q": [layers, P], "post": [{w, b}, ...]}`` with ``w[in, out]``; the module
-holds ``nn.Linear.weight[out, in]``, so weights transpose on the way.
+"q": [layers, P], "post": [{w, b}, ...]}`` with ``w[in, out]``, and with an
+RBF head also ``"rbf": {c, w, v, a}`` (same layout in both packages); the
+module holds ``nn.Linear.weight[out, in]``, so weights transpose on the way.
 Leaves cross as numpy arrays.
 """
 
@@ -26,6 +27,8 @@ def params_from_jax(tree) -> dict:
         for i, layer in enumerate(tree[name]):
             sd[f"{name}.{i}.weight"] = t(np.asarray(layer["w"]).T)
             sd[f"{name}.{i}.bias"] = t(layer["b"])
+    for k, leaf in tree.get("rbf", {}).items():
+        sd[f"rbf.{k}"] = t(leaf)
     return sd
 
 
@@ -43,10 +46,13 @@ def grads_to_jax_layout(model) -> dict:
             for layer in layers
         ]
 
-    return {
+    tree = {
         "ff": {"B": np.zeros(tuple(model.B.shape), np.float32)},
         "pre": mlp(model.pre),
         "skip": mlp(model.skip),
         "q": np_(model.q.grad),
         "post": mlp(model.post),
     }
+    if getattr(model, "rbf", None) is not None:
+        tree["rbf"] = {k: np_(p.grad) for k, p in model.rbf.items()}
+    return tree

@@ -6,8 +6,10 @@ qcpinn_tpu/models/dv_fourier.py), as an ``nn.Module``.
   post: [z, skip] -> Linear(h) Tanh Linear(h) Tanh Linear(out)
 
 with a classical skip (tanh of a Linear(h -> skip_dim) on the trunk) around
-the quantum block. ``model(x)`` is the JAX package's
-``model.apply(params, x)``; the parameters live in the module.
+the quantum block, and with ``rbf_count > 0`` an additive Gaussian-RBF head
+on the output (``nn_core.rbf_apply`` of the raw input). ``model(x)`` is the
+JAX package's ``model.apply(params, x)``; the parameters live in the
+module.
 """
 
 from __future__ import annotations
@@ -30,6 +32,9 @@ class DVFourierSolver(nn.Module):
         mapping_size: int = 32,
         ff_scale: float = 4.0,
         skip_dim: int = 32,
+        rbf_count: int = 0,
+        rbf_width: float = 8.0,
+        rbf_centers=None,
         device=None,
     ):
         super().__init__()
@@ -40,6 +45,8 @@ class DVFourierSolver(nn.Module):
         self.in_dim, self.hidden, self.out_dim = in_dim, hidden, out_dim
         self.mapping = mapping_size
         self.skip_dim = skip_dim
+        self.rbf_count = rbf_count
+        self.rbf_width = rbf_width
         self.circuit = DVCircuit(
             num_qubits=self.n,
             num_quantum_layers=config.num_quantum_layers,
@@ -59,6 +66,12 @@ class DVFourierSolver(nn.Module):
         self.q = nn.Parameter(self.circuit.init_params(generator, device="cpu"))
         self.post = nc.mlp_init(
             (self.n + skip_dim, hidden, hidden, out_dim), generator
+        )
+        # additive localized head at the output (a direct gradient path)
+        self.rbf = (
+            nc.rbf_init(in_dim, rbf_count, centers=rbf_centers, width=rbf_width,
+                        out_dim=out_dim, generator=generator)
+            if rbf_count > 0 else None
         )
         self.to(device)
         self._fused = None
@@ -93,4 +106,7 @@ class DVFourierSolver(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         enc = self.encode(x)
         z = self.qblock.apply(self.q, enc[:, : self.n])
-        return self.head(torch.cat([z, enc[:, self.n :]], dim=-1))
+        out = self.head(torch.cat([z, enc[:, self.n :]], dim=-1))
+        if self.rbf is not None:
+            out = out + nc.rbf_apply(self.rbf, x)
+        return out

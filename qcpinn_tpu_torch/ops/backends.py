@@ -6,7 +6,10 @@ qcpinn_tpu/ops/pallas_loop.py::make_fused_backend).
   the hand-written CUDA block-chain kernels (n <= 12 on the card);
   reverse-mode AD only; needs a decomposition with no boundary-straddling
   segment (cross_mesh qualifies, ring-closure ansatzes do not).
-- ``loop`` / ``unrolled``: not yet ported.
+- ``loop``: :class:`LoopFusedCircuit`, the gate table in the hand-written
+  CUDA gate-loop kernels (1 <= n <= 16 on the card); any ansatz;
+  reverse-mode AD only.
+- ``unrolled``: not yet ported.
 
 ``auto`` is a stated rule, not a fallback: on CUDA at 10 <= n <= 12 it
 picks ``block_kernel`` when ``supports()`` holds, else ``block``; on the CPU
@@ -18,9 +21,11 @@ says nothing about the H100. Nothing here catches an error and carries on.
 from __future__ import annotations
 
 from .. import resolve_device
+from . import loop_kernel
 from .block_fused import BlockFusedCircuit
 from .block_kernel import MAX_QUBITS, BlockKernelCircuit, supports
 from .circuit import DVCircuit
+from .loop_kernel import LoopFusedCircuit
 
 BACKENDS = ("auto", "block", "block_kernel", "loop", "unrolled")
 
@@ -34,10 +39,17 @@ def make_fused_backend(circuit: DVCircuit, backend: str = "auto", device=None):
     if backend == "auto":
         on_card = device.type == "cuda" and 10 <= circuit.n <= MAX_QUBITS
         backend = "block_kernel" if on_card and supports(circuit) else "block"
-    if backend in ("loop", "unrolled"):
+    if backend == "unrolled":
         raise NotImplementedError(f"backend {backend!r}: not yet ported")
     if backend == "block":
         return BlockFusedCircuit(circuit)
+    if backend == "loop":
+        if device.type == "cuda" and circuit.n > loop_kernel.MAX_QUBITS:
+            raise ValueError(
+                f"loop runs n <= {loop_kernel.MAX_QUBITS} on the card; "
+                f"got n = {circuit.n}"
+            )
+        return LoopFusedCircuit(circuit)
     if device.type == "cuda" and circuit.n > MAX_QUBITS:
         raise ValueError(
             f"block_kernel runs n <= {MAX_QUBITS} on the card; got n = {circuit.n}"

@@ -41,16 +41,12 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from . import cuda_build
 from .block_fused import BlockFusedCircuit, Segment, _block_unitary
 from .circuit import DVCircuit
 
@@ -58,12 +54,6 @@ MAX_QUBITS = 12  # one sample's state must fit in one CTA's shared memory
 MAX_STEPS = 128  # QC_MAX_STEPS in csrc/block_chain.cu
 SMEM_LIMIT = 227 * 1024  # opt-in dynamic shared memory per CTA on sm_90
 
-_SRC = os.path.join(os.path.dirname(__file__), "csrc", "block_chain.cu")
-_BUILD_DIR = os.path.join(os.path.dirname(__file__), "csrc", "_build")
-_NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
 
 LAUNCHES = {
     "block_chain_fwd": 0,
@@ -279,49 +269,10 @@ def block_chain_reduce_ref(partials: torch.Tensor) -> torch.Tensor:
 _LIB: Optional[ctypes.CDLL] = None
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    for cand in (
-        os.path.join(home, "bin", "nvcc") if home else None,
-        shutil.which("nvcc"),
-        "/usr/local/cuda/bin/nvcc",
-    ):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found; set CUDA_HOME to the CUDA toolkit")
-
-
-def library_path() -> str:
-    """Build output keyed by a hash of the source and the flags."""
-    with open(_SRC, "rb") as f:
-        key = hashlib.sha256(f.read() + " ".join(_NVCC_FLAGS).encode())
-    return os.path.join(_BUILD_DIR, f"block_chain-{key.hexdigest()[:16]}.so")
-
-
-def build() -> Tuple[str, float, str]:
-    """Compile csrc/block_chain.cu with nvcc unless the hashed output
-    exists. Returns (path, seconds spent compiling, ptxas report)."""
-    path = library_path()
-    if os.path.exists(path):
-        return path, 0.0, ""
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", tmp, _SRC]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, path)
-    return path, seconds, proc.stderr
-
-
 def _lib() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(build()[0])
+        lib = ctypes.CDLL(cuda_build.build("block_chain")[0])
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.qc_block_chain_fwd.argtypes = [p] * 6 + [i, i, i, p, i, p]
         lib.qc_block_chain_bwd.argtypes = [p] * 9 + [i] * 5 + [p, i, i, p]

@@ -1,9 +1,8 @@
 """The DV quantum layer (port of qcpinn_tpu/ops/circuit.py).
 
 A compile-time circuit build plus a pure ``apply(params, x) -> [B, n]``:
-RX angle encoding (amplitude encoding is not ported yet),
-``num_quantum_layers`` x ansatz, the fixed
-seeded Haar 4x4 blocks on wires [0,1], [2,3] when n >= 4 and a seed is set,
+RX angle (or amplitude) encoding, ``num_quantum_layers`` x ansatz, the
+fixed seeded Haar 4x4 blocks on wires [0,1], [2,3] when n >= 4 and a seed is set,
 a Hadamard on the last wire, and ``<Z_w>`` for every wire
 (nn/DVQuantumLayer.py:176-214). Gradients flow by ordinary autograd.
 The circuit holds no tensors: it computes on its inputs' device.
@@ -38,9 +37,9 @@ class DVCircuit:
         seed: Optional[int] = None,
         fuse: bool = True,
     ):
-        if encoding not in ("angle", "angle_pi"):
+        if encoding not in ("angle", "angle_pi", "amplitude"):
             raise ValueError(
-                f"encoding {encoding!r} is not ported; have angle, angle_pi"
+                f"unknown encoding {encoding!r}; have angle, angle_pi, amplitude"
             )
         self.n = num_qubits
         self.layers = num_quantum_layers
@@ -89,6 +88,8 @@ class DVCircuit:
 
     def prepare(self, x: torch.Tensor) -> torch.Tensor:
         """Encode inputs ``[B, F]`` into the initial state ``[B, 2^n]``."""
+        if self.encoding == "amplitude":
+            return sv.encode_amplitude(x, self.n)
         state = sv.zero_state(x.shape[0], self.n, device=x.device)
         return sv.encode_angle(state, self.n, x * self.input_scale)
 

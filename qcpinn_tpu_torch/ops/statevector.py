@@ -152,3 +152,16 @@ def encode_angle_product(x: torch.Tensor, n: int) -> torch.Tensor:
     pop = bits.sum(axis=1).astype(np.int64) % 4
     phase = np.array([1, -1j, -1, 1j], dtype=np.complex64)[pop]  # (-i)^popcount
     return mag.to(CDTYPE) * torch.as_tensor(phase, device=x.device)[None, :]
+
+
+def encode_amplitude(x: torch.Tensor, n: int, eps: float = 1e-12) -> torch.Tensor:
+    """AmplitudeEmbedding(normalize=True, pad_with=0.0)
+    (nn/DVQuantumLayer.py:177-180): pad features to 2^n and L2-normalize
+    per sample. Returns the prepared state directly."""
+    b, f = x.shape
+    dim = 1 << n
+    if f > dim:
+        raise ValueError(f"{f} features do not fit in {n} qubits")
+    padded = torch.nn.functional.pad(x.to(RDTYPE), (0, dim - f))
+    norm = torch.sqrt(torch.sum(padded * padded, dim=1, keepdim=True) + eps)
+    return (padded / norm).to(CDTYPE)

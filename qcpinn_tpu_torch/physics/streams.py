@@ -27,6 +27,7 @@ from typing import Callable, Tuple
 import torch
 from torch.func import jvp
 
+from ..models.nn_core import rbf_apply
 from ..ops import statevector as sv
 
 
@@ -176,6 +177,19 @@ def dv_diffusion_residual_streams(
 
     u_x, u_xx = second(g_x, h_x)
     u_y, u_yy = second(g_y, h_y)
+
+    if getattr(model, "rbf", None) is not None:
+        # additive RBF head (models/dv_fourier.py): a direct function of X,
+        # so its streams are ordinary nested jvps, no circuit involved
+        def rbf_fn(Xp):
+            return rbf_apply(model.rbf, Xp)
+
+        r0, r_t = _enc_d1(rbf_fn, X, 0)
+        _, r_x, r_xx = _enc_d2(rbf_fn, X, 1)
+        _, r_y, r_yy = _enc_d2(rbf_fn, X, 2)
+        u, u_t = u + r0, u_t + r_t
+        u_x, u_y = u_x + r_x, u_y + r_y
+        u_xx, u_yy = u_xx + r_xx, u_yy + r_yy
 
     residual = (
         u_t[:, 0] / sigma_t

@@ -1,29 +1,157 @@
-"""Clipping and Adam (port of the bench step's
-``optax.chain(clip_by_global_norm(max_norm), adam(lr))``).
+"""Clipping, Adam and schedules (port of qcpinn_tpu/train/optim.py and of
+the optax transformations it chains).
 
 ``clip_by_global_norm`` follows optax's formula exactly: the gradients are
 rescaled by ``max_norm / norm`` only when ``norm >= max_norm``, with no
 epsilon. ``torch.nn.utils.clip_grad_norm_`` adds 1e-6 to the norm, so it is
-not used. ``torch.optim.Adam`` (betas 0.9/0.999, eps 1e-8) has the same
-update as ``optax.adam``.
+not used. ``adam`` (``torch.optim.Adam``, betas 0.9/0.999, eps 1e-8) has
+the same update as ``optax.adam`` and drives the bench step.
+
+:func:`make_optimizer` is the twin of the JAX ``make_optimizer``: an
+optax-style transformation (``init`` / ``update``) of clip and Adam with a
+constant or cosine learning rate, written out in torch so the update is
+explicit and the plateau scale multiplies it as ``optim.scale_updates``
+does in JAX. The plateau state lives on the device and updates with
+``torch.where``: no host round trip.
 """
 
 from __future__ import annotations
 
-from typing import Iterable
+import dataclasses
+import math
+from typing import Callable, Iterable, List, NamedTuple, Optional, Sequence
 
 import torch
 
 
-def clip_by_global_norm(params: Iterable[torch.nn.Parameter], max_norm: float):
-    """Clip the ``.grad`` of ``params`` in place; returns the global norm.
-    No host synchronisation: the branch is a ``torch.where``."""
-    grads = [p.grad for p in params if p.grad is not None]
+def clip_grads(grads: Sequence[torch.Tensor], max_norm: float):
+    """(clipped grads, global norm), optax's formula. No host
+    synchronisation: the branch is a ``torch.where``."""
     norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-    for g in grads:
-        g.copy_(torch.where(norm < max_norm, g, g / norm * max_norm))
+    return [torch.where(norm < max_norm, g, g / norm * max_norm) for g in grads], norm
+
+
+def clip_by_global_norm(params: Iterable[torch.nn.Parameter], max_norm: float):
+    """Clip the ``.grad`` of ``params`` in place; returns the global norm."""
+    grads = [p.grad for p in params if p.grad is not None]
+    clipped, norm = clip_grads(grads, max_norm)
+    for g, c in zip(grads, clipped):
+        g.copy_(c)
     return norm
 
 
+B1, B2, EPS = 0.9, 0.999, 1e-8  # optax.adam's and torch.optim.Adam's defaults
+
+
 def adam(params, lr: float) -> torch.optim.Adam:
-    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    return torch.optim.Adam(params, lr=lr, betas=(B1, B2), eps=EPS)
+
+
+# -- the optax-style chain -------------------------------------------------------
+
+
+def cosine_decay_schedule(lr: float, decay_steps: int) -> Callable[[int], float]:
+    """``optax.cosine_decay_schedule(lr, decay_steps)``: the k-th update
+    (k from 0) uses ``lr * 0.5 * (1 + cos(pi * min(k, E) / E))``."""
+
+    def schedule(count: int) -> float:
+        k = min(count, decay_steps)
+        return lr * 0.5 * (1.0 + math.cos(math.pi * k / decay_steps))
+
+    return schedule
+
+
+@dataclasses.dataclass
+class AdamState:
+    count: int  # updates taken so far (on the host: no device sync)
+    mu: List[torch.Tensor]
+    nu: List[torch.Tensor]
+
+
+class GradientTransformation(NamedTuple):
+    init: Callable[[Sequence[torch.Tensor]], AdamState]
+    update: Callable  # (grads, state, params) -> (updates, state)
+
+
+def make_optimizer(
+    lr: float,
+    grad_clip: Optional[float] = None,
+    schedule: str = "plateau",
+    epochs: int = 0,
+) -> GradientTransformation:
+    """Adam with optional global-norm clipping, as
+    ``optax.chain(clip_by_global_norm, adam(sched))``. For 'cosine' the
+    schedule is baked in; for 'plateau' the caller multiplies the update by
+    ``PlateauState.scale`` (:func:`scale_updates`). The JAX version's
+    ``weight_decay`` (the CV solver's) is not yet ported."""
+    sched = (cosine_decay_schedule(lr, max(epochs, 1)) if schedule == "cosine"
+             else (lambda count: lr))
+
+    def init(params: Sequence[torch.Tensor]) -> AdamState:
+        return AdamState(0, [torch.zeros_like(p) for p in params],
+                         [torch.zeros_like(p) for p in params])
+
+    @torch.no_grad()
+    def update(grads, state: AdamState, params):
+        g = list(grads)
+        if grad_clip is not None and grad_clip > 0:
+            g, _ = clip_grads(g, grad_clip)
+        count = state.count + 1
+        mu = [(1.0 - B1) * t + B1 * m for t, m in zip(g, state.mu)]
+        nu = [(1.0 - B2) * t * t + B2 * v for t, v in zip(g, state.nu)]
+        bc1, bc2 = 1.0 - B1**count, 1.0 - B2**count
+        step = -sched(state.count)
+        updates = [step * ((m / bc1) / (torch.sqrt(v / bc2) + EPS))
+                   for m, v in zip(mu, nu)]
+        return updates, AdamState(count, mu, nu)
+
+    return GradientTransformation(init, update)
+
+
+@torch.no_grad()
+def apply_updates(params: Sequence[torch.Tensor], updates) -> None:
+    """params += updates, in place."""
+    for p, u in zip(params, updates):
+        p.add_(u)
+
+
+class PlateauState(NamedTuple):
+    best: torch.Tensor  # best loss seen
+    bad_epochs: torch.Tensor  # epochs since last improvement
+    scale: torch.Tensor  # multiplicative lr scale
+
+
+def plateau_init(device=None) -> PlateauState:
+    return PlateauState(
+        best=torch.tensor(float("inf"), dtype=torch.float32, device=device),
+        bad_epochs=torch.tensor(0, dtype=torch.int32, device=device),
+        scale=torch.tensor(1.0, dtype=torch.float32, device=device),
+    )
+
+
+@torch.no_grad()
+def plateau_update(
+    state: PlateauState,
+    loss: torch.Tensor,
+    factor: float = 0.9,
+    patience: int = 1000,
+    threshold: float = 1e-4,
+    min_scale: float = 1e-8,
+) -> PlateauState:
+    """torch.optim.lr_scheduler.ReduceLROnPlateau semantics (mode='min',
+    threshold_mode='rel'): improvement means loss < best * (1 - threshold);
+    after `patience` consecutive non-improvements, scale *= factor."""
+    loss = loss.detach().to(torch.float32)
+    improved = loss < state.best * (1.0 - threshold)
+    best = torch.where(improved, loss, state.best)
+    bad = torch.where(improved, torch.zeros_like(state.bad_epochs),
+                      state.bad_epochs + 1)
+    trip = bad > patience
+    scale = torch.where(trip, torch.clamp(state.scale * factor, min=min_scale),
+                        state.scale)
+    bad = torch.where(trip, torch.zeros_like(bad), bad)
+    return PlateauState(best=best, bad_epochs=bad, scale=scale)
+
+
+def scale_updates(updates, scale: torch.Tensor):
+    return [u * scale for u in updates]

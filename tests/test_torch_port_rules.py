@@ -14,6 +14,7 @@ import torch
 import qcpinn_tpu_torch
 from qcpinn_tpu_torch import bench, resolve_device
 from qcpinn_tpu_torch.ops import backends, block_kernel as bk
+from qcpinn_tpu_torch.ops import loop_kernel as lk
 from qcpinn_tpu_torch.ops.block_fused import BlockFusedCircuit
 from qcpinn_tpu_torch.ops.circuit import DVCircuit
 
@@ -85,9 +86,10 @@ def test_auto_rule_and_unported_backends():
     assert type(backends.make_fused_backend(cm12, device="cpu")) is BlockFusedCircuit
     eng = backends.make_fused_backend(cm12, "block_kernel", device="cpu")
     assert isinstance(eng, bk.BlockKernelCircuit)
-    for name in ("loop", "unrolled"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            backends.make_fused_backend(cm12, name, device="cpu")
+    assert isinstance(backends.make_fused_backend(cm12, "loop", device="cpu"),
+                      lk.LoopFusedCircuit)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        backends.make_fused_backend(cm12, "unrolled", device="cpu")
     with pytest.raises(ValueError):
         backends.make_fused_backend(cm12, "block_pallas", device="cpu")
     with pytest.raises(ValueError):  # a ring ansatz straddles the cut
@@ -100,7 +102,8 @@ def test_auto_rule_on_the_card(monkeypatch):
     with CUDA reported present."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     for n, want in ((9, BlockFusedCircuit), (10, bk.BlockKernelCircuit),
-                    (12, bk.BlockKernelCircuit), (13, BlockFusedCircuit)):
+                    (12, bk.BlockKernelCircuit), (13, BlockFusedCircuit),
+                    (16, BlockFusedCircuit)):
         eng = backends.make_fused_backend(DVCircuit(n, 1, "cross_mesh", seed=42))
         assert type(eng) is want, n
     ring = DVCircuit(12, 1, "cascade")
@@ -134,4 +137,77 @@ def test_cpu_tensors_take_the_plain_version():
     out.abs().sum().backward()
     assert bk.LAUNCHES == {**{k: 0 for k in bk.LAUNCHES},
                            "block_chain_fwd_ref": 1, "block_chain_bwd_ref": 1}
+    assert out.shape == (3, 1 << 10) and params.grad is not None
+
+
+def test_new_entry_points_raise_without_cuda(monkeypatch):
+    from qcpinn_tpu_torch import north_star
+    from qcpinn_tpu_torch.data import diffusion as dd
+    from qcpinn_tpu_torch.utils.evaluation import evaluate_relative_l2
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        north_star.run(north_star.parse_args(["--qubits", "4"]))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluate_relative_l2(lambda x: x[:, :1], dd.u, num=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        backends.make_fused_backend(DVCircuit(4, 1, "cascade"), "loop")
+
+
+def test_loop_backend_on_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    eng = backends.make_fused_backend(DVCircuit(16, 1, "cross_mesh", seed=42), "loop")
+    assert isinstance(eng, lk.LoopFusedCircuit) and eng.lp.table.shape == (37, 8)
+    with pytest.raises(ValueError, match="n <= 16"):
+        backends.make_fused_backend(DVCircuit(17, 1, "cascade"), "loop")
+
+
+class _FakeCuda:
+    """Stands in for a CUDA tensor: the checks read only these fields."""
+
+    def __init__(self, shape, dtype=torch.float32, contiguous=True):
+        self.shape, self.dtype, self._c = tuple(shape), dtype, contiguous
+        self.device = torch.device("cuda", 0)
+
+    def is_contiguous(self):
+        return self._c
+
+
+def test_loop_wrappers_refuse_unsupported_cuda_work():
+    """The CUDA-side checks run before any library is loaded."""
+    lp17 = lk.compile_loop_program(DVCircuit(17, 1, "cascade"))
+    x = torch.zeros(2, lp17.hi, lp17.lo)
+    with pytest.raises(ValueError, match="n <= 16"):
+        lk._check_cuda(lp17, (x, x), x, x, x, x)
+    lp = lk.compile_loop_program(DVCircuit(10, 1, "cross_mesh", seed=42))
+    st = _FakeCuda((3, lp.hi, lp.lo))
+    m = _FakeCuda((lp.num_mats, 8))
+    u4 = _FakeCuda(lp.u4_bank.shape)
+    ph = _FakeCuda((lp.num_phases, lp.hi, lp.lo))
+    lk._check_cuda(lp, (st, st), m, u4, ph, ph)  # a well-formed call passes
+    with pytest.raises(ValueError, match="CUDA float32"):
+        lk._check_cuda(lp, (torch.zeros(3, lp.hi, lp.lo),) * 2, m, u4, ph, ph)
+    with pytest.raises(ValueError, match="CUDA float32"):
+        lk._check_cuda(lp, (_FakeCuda(st.shape, torch.float64), st), m, u4, ph, ph)
+    with pytest.raises(ValueError, match="contiguous"):
+        lk._check_cuda(lp, (st, _FakeCuda(st.shape, contiguous=False)), m, u4, ph, ph)
+    with pytest.raises(ValueError, match="expected"):
+        lk._check_cuda(lp, (st, st), _FakeCuda((lp.num_mats + 1, 8)), u4, ph, ph)
+    with pytest.raises(ValueError, match="unsupported device"):
+        lk.gate_loop_fwd(torch.zeros(1, lp.hi, lp.lo, device="meta"), None, None,
+                         None, None, None, lp)
+    assert lk._LIB is None
+
+
+def test_loop_cpu_tensors_take_the_plain_version():
+    circ = DVCircuit(10, 1, "cascade", seed=42)
+    eng = lk.LoopFusedCircuit(circ)
+    params = torch.zeros(circ.num_params, requires_grad=True)
+    state = torch.zeros(3, 1 << 10, dtype=torch.complex64)
+    state[:, 0] = 1.0
+    lk.reset_launches()
+    out = eng.evolve(params, state)
+    out.abs().sum().backward()
+    assert lk.LAUNCHES == {**{k: 0 for k in lk.LAUNCHES},
+                           "gate_loop_fwd_ref": 1, "gate_loop_bwd_ref": 1}
     assert out.shape == (3, 1 << 10) and params.grad is not None
