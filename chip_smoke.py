@@ -6,8 +6,9 @@
 Phases, each printed as one JSON line; any failure exits non-zero:
 
 1. device      the card, nvidia-smi's name and power limit, versions, TF32 off.
-2. build       nvcc builds ops/csrc/block_chain.cu and ops/csrc/gate_loop.cu
-               from the checkout, one process per source, started together.
+2. build       nvcc builds ops/csrc/block_chain.cu, ops/csrc/gate_loop.cu and
+               ops/csrc/unrolled_sv.cu from the checkout, one process per
+               source, started together.
 3. kernel_shapes the other sizes ``auto`` sends to the block-chain kernels
                (n = 10, 11, 12 with 3 layers; B = 37 and B = 1), and uneven
                block splits (a 128-wide block: the backward's matrix
@@ -45,6 +46,30 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                per evaluation chunk), no plain version called. Then the
                stage-2 step rate on the loop and block engines, and a
                torch.profiler window of each.
+11. unrolled_shapes the unrolled kernels (K3/K4 and the slab reduction
+               K4b) against their plain versions, with the encoding (from
+               |0...0>) and evolve-only: cross_mesh n = 7, 8, 9, 10, 12,
+               cascade n = 8 seed 11 (controlled gates, Haar u2q), layered
+               n = 8 with 3 layers, an amplitude-encoded evolve at n = 8,
+               B = 37 and B = 1: forward <= 3e-5 absolute on unit-norm states
+               (tests/test_pallas_sv.py), backward <= 2e-4 * max|ref| per
+               output, bit-equal across two runs.
+12. unrolled_kernels K3, K4 and K4b at the 8q main path's shapes (the
+               evolve of B = 6144 stream rows, the apply of B = 682 value
+               rows), same limits, with times beside the plain versions and
+               the plain block engine's einsum chain.
+13. step_parity_8q one 8q bench step through ``unrolled`` against the plain
+               block engine; limits as in 5.
+14. train_8q   the 8q main path: the bench train step at 8 qubits (``auto``
+               picks FusedCircuit) for 30 steps with the launch counters set
+               to 0 just before: every loss finite, K3, K4 and K4b launched
+               exactly twice a step, no plain version called; then a
+               torch.profiler window.
+15. north_star_plain ``north_star.run`` with --solver plain (DVSolver, one
+               stage) at 10 qubits, B = 256, hidden 64, --backend unrolled,
+               50 steps, then the 20^3 evaluation by streams: every loss
+               finite, K3 launched twice per step and twice per evaluation
+               chunk, K4 and K4b twice per step, no plain version called.
 
 Then the kernel summary line, the nvidia-smi line, and the result line.
 """
@@ -131,16 +156,16 @@ NORTH_STAR_ARGS = ["--backend", "loop", "--stage1-minutes", "1e-9",
 RATE_STEPS = 10
 
 
-def loop_work(lk, lp, b):
-    """(forward, backward) flops the gate table needs for B samples: per
+def step_work(lk, steps, n, b):
+    """(forward, backward) flops a gate table needs for B samples: per
     amplitude a mat step is 2 complex multiply-adds (8 flops each), a diag
     step 1 complex multiply (6), a u2q step 4 complex multiply-adds; a
     controlled mat touches half the amplitudes. The backward recovers the
     input and pulls the cotangent back (twice the forward) and accumulates
     the matrix (2 complex multiply-adds) or phase (8 flops) cotangents."""
-    d = 1 << lp.n
+    d = 1 << n
     fwd = bwd = 0
-    for st in lk.steps(lp):
+    for st in steps:
         if st.kind == lk.K_MAT:
             amps = d // 2 if st.ctrl else d
             fwd, bwd = fwd + 16 * amps, bwd + 48 * amps
@@ -316,7 +341,7 @@ def loop_phases(dev, gen, card_peaks, smi):
         errs, y, y_ref = check_loop(lk, lp, banks, states, f"16q_B{b}")
         xr, xi, gr, gi = states
         bank_bytes = 4 * sum(t.numel() for t in banks)
-        f_ops, b_ops = loop_work(lk, lp, b)
+        f_ops, b_ops = step_work(lk, lk.steps(lp), lp.n, b)
         xc = torch.complex(xr, xi).reshape(b, 1 << blk.hb, 1 << blk.lb)
         with torch.no_grad():
             ops = block_chain_ops(blk, params)
@@ -476,6 +501,318 @@ def loop_phases(dev, gen, card_peaks, smi):
     return rows
 
 
+SV_FWD_TOL = 3e-5
+SV_QUBITS = 8
+SV_SHAPES = (  # (n, ansatz, layers, seed, encoding, B)
+    (7, "cross_mesh", 1, 42, "angle", 37), (8, "cross_mesh", 1, 42, "angle", 37),
+    (9, "cross_mesh", 1, 42, "angle", 37), (10, "cross_mesh", 1, 42, "angle", 37),
+    (12, "cross_mesh", 1, 42, "angle", 37), (8, "cascade", 1, 11, "angle", 37),
+    (8, "layered", 3, 42, "angle", 37), (8, "cross_mesh", 1, 42, "amplitude", 37),
+    (8, "cross_mesh", 1, 42, "angle", 1), (12, "cross_mesh", 1, 42, "angle", 1),
+)
+# the 8q main path: the evolve of 6 x 1024 stream rows, the apply (with the
+# encoding) of 2 x 341 value rows
+SV_BATCHES = ((6 * 1024, "evolve"), (2 * (1024 // 3), "apply"))
+SV_NAMES = ("unrolled_fwd", "unrolled_bwd", "unrolled_reduce")
+# the plain-solver twin at 10 qubits, bounded by steps: a 25-step warm-up
+# chunk and one timed chunk of 25
+NORTH_STAR_PLAIN_ARGS = ["--solver", "plain", "--qubits", "10", "--backend",
+                         "unrolled", "--chunk", "25", "--total-steps", "50",
+                         "--minutes", "30"]
+
+
+def sv_inputs(sk, circ, b, mode, gen, dev):
+    """Kernel inputs for ``mode`` 'apply' (the encoding program from
+    |0...0>) or 'evolve' (a random unit-norm state, or an amplitude-encoded
+    one): (program, params, encoding inputs, banks, states)."""
+    import torch
+
+    from qcpinn_tpu_torch.ops import statevector as tsv
+
+    eng = sk.FusedCircuit(circ)
+    consts = eng.constants(dev)
+    d = 1 << circ.n
+    params = 0.3 * torch.randn(circ.num_params, generator=gen, device=dev)
+    x = None
+    if mode == "apply":
+        mp = eng.mp
+        x = (2 * torch.rand(b, circ.n, generator=gen, device=dev) - 1) * math.pi
+        xr = consts.e0.expand(b, -1).contiguous()
+        xi = torch.zeros_like(xr)
+    else:
+        mp = eng.mp_evolve
+        if circ.encoding == "amplitude":
+            st = tsv.encode_amplitude(
+                torch.rand(b, d - 3, generator=gen, device=dev) + 0.1, circ.n)
+            xr, xi = st.real.contiguous(), st.imag.contiguous()
+        else:
+            v = torch.randn(2, b, d, generator=gen, device=dev)
+            v = v / torch.sqrt((v**2).sum(dim=(0, 2), keepdim=True))
+            xr, xi = v[0].contiguous(), v[1].contiguous()
+    with torch.no_grad():
+        mre, mim, cos, sin = sk.gather_inputs(circ, mp, params, x, batch=b,
+                                              consts=consts)
+    if mp.num_phases == 0:
+        cos = sin = consts.zero_phase
+    g = torch.randn(2, b, d, generator=gen, device=dev)
+    return (mp, params, x, (mre, mim, cos, sin, consts.u4),
+            (xr, xi, g[0].contiguous(), g[1].contiguous()))
+
+
+def check_sv(sk, mp, banks, states, tag):
+    """K3/K4 against the plain versions; returns the errors and the
+    outputs."""
+    import torch
+
+    xr, xi, gr, gi = states
+    y = sk.unrolled_fwd(xr, xi, *banks, mp)
+    y_ref = sk.unrolled_fwd_ref(xr, xi, *banks, mp)
+    torch.cuda.synchronize()
+    e_fwd = max((a - r).abs().max().item() for a, r in zip(y, y_ref))
+    if not e_fwd <= SV_FWD_TOL:
+        raise SystemExit(f"unrolled_fwd {tag}: max abs err {e_fwd} > {SV_FWD_TOL}")
+    got = sk.unrolled_bwd(*y, gr, gi, *banks, mp)
+    again = sk.unrolled_bwd(*y, gr, gi, *banks, mp)
+    want = sk.unrolled_bwd_ref(*y_ref, gr, gi, *banks, mp)
+    torch.cuda.synchronize()
+    e_abs = e_rel = 0.0
+    names = ("gxr", "gxi", "gmre", "gmim", "gcos", "gsin")
+    for name, a, r in zip(names, got, want):
+        e = (a - r).abs().max().item()
+        scale = r.abs().max().item()
+        if not e <= BWD_RTOL * scale:
+            raise SystemExit(f"unrolled_bwd {tag} {name}: err {e} > {BWD_RTOL} * {scale}")
+        e_abs, e_rel = max(e_abs, e), max(e_rel, e / scale if scale else 0.0)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise SystemExit(f"unrolled_bwd {tag} is not deterministic")
+    return {"fwd_abs": e_fwd, "bwd_abs": e_abs, "bwd_rel": e_rel}, y, y_ref
+
+
+def unrolled_phases(dev, gen, card_peaks, smi):
+    """Phases 11-15; returns the K3/K4/reduction rows of the summary line."""
+    import torch
+
+    from qcpinn_tpu_torch import bench, north_star as ns
+    from qcpinn_tpu_torch.ops import loop_kernel as lk
+    from qcpinn_tpu_torch.ops import sv_kernel as sk
+    from qcpinn_tpu_torch.ops import statevector as tsv
+    from qcpinn_tpu_torch.ops.block_fused import BlockFusedCircuit
+    from qcpinn_tpu_torch.ops.circuit import DVCircuit
+
+    # -- 11. unrolled_shapes ---------------------------------------------------
+    shape_errs = {}
+    for n, ansatz, layers, seed, enc, b in SV_SHAPES:
+        circ = DVCircuit(n, layers, ansatz, encoding=enc, seed=seed)
+        for mode in ("evolve",) if enc == "amplitude" else ("apply", "evolve"):
+            mp, _, _, banks, states = sv_inputs(sk, circ, b, mode, gen, dev)
+            tag = f"{ansatz}_{enc}_n{n}_layers{layers}_B{b}_{mode}"
+            shape_errs[tag], _, _ = check_sv(sk, mp, banks, states, tag)
+    emit({"phase": "unrolled_shapes", "tol": {"fwd_abs": SV_FWD_TOL,
+                                              "bwd": f"{BWD_RTOL}*max|ref|"},
+          "results": shape_errs})
+    torch.cuda.empty_cache()
+
+    # -- 12. unrolled_kernels at the 8q main path's shapes ---------------------
+    circ = DVCircuit(SV_QUBITS, 1, "cross_mesh", seed=42)
+    blk = BlockFusedCircuit(circ)
+    d = 1 << circ.n
+    hl = (1 << blk.hb, 1 << blk.lb)
+    per_kernel = {k: {} for k in SV_NAMES}
+    for b, mode in SV_BATCHES:
+        mp, params, x, banks, states = sv_inputs(sk, circ, b, mode, gen, dev)
+        errs, y, y_ref = check_sv(sk, mp, banks, states, f"{SV_QUBITS}q_B{b}")
+        xr, xi, gr, gi = states
+        bank_bytes = 4 * sum(t.numel() for t in banks)
+        f_ops, b_ops = step_work(lk, sk.steps(mp), mp.n, b)
+        with torch.no_grad():
+            ops = block_chain_ops(blk, params)
+            if mode == "apply":  # the library prepares the encoded state too
+
+                def lib_fwd():
+                    return run_chain(ops, tsv.encode_angle_product(x, circ.n).reshape(b, *hl))
+            else:
+                xc = torch.complex(xr, xi).reshape(b, *hl)
+
+                def lib_fwd():
+                    return run_chain(ops, xc)
+
+            fb, fby = bound(f_ops, 4 * 4 * b * d + bank_bytes, card_peaks)
+            per_kernel["unrolled_fwd"][b] = {
+                "mode": mode, "max_abs_err": errs["fwd_abs"], "tol": SV_FWD_TOL,
+                "ms": time_ms(lambda: sk.unrolled_fwd(xr, xi, *banks, mp)),
+                "plain_ms": time_ms(lambda: sk.unrolled_fwd_ref(xr, xi, *banks, mp),
+                                    reps=5),
+                "library_ms": time_ms(lib_fwd, reps=10),
+                "library": "the block engine's complex einsum chain, matrices "
+                           "and phases built once (cuBLAS, TF32 off)"
+                           + ("; with the product-state encoding" if mode == "apply"
+                              else ""),
+                "bound_ms": fb, "bound_by": fby,
+            }
+        gxr, gxi, gmre, gmim, partials = sk.unrolled_bwd_partials(*y, gr, gi, *banks, mp)
+        red = sk.unrolled_reduce(partials)
+        red_ref = sk.unrolled_reduce_ref(partials)
+        torch.cuda.synchronize()
+        red_err = (red - red_ref).abs().max().item()
+        if not red_err <= RED_RTOL * red_ref.abs().max().item():
+            raise SystemExit(f"unrolled_reduce B={b}: err {red_err}")
+        out_bytes = 4 * (gmre.numel() + gmim.numel() + banks[2].numel() + banks[3].numel())
+        bb, bby = bound(b_ops, 4 * 6 * b * d + bank_bytes + out_bytes, card_peaks)
+        # the library's backward alone, on the prepared state: its graph is
+        # built once, outside the timed calls, as the kernel's forward is
+        # outside K4's time
+        xg = torch.complex(xr, xi).reshape(b, *hl).requires_grad_(True)
+        leaves = [m.clone().requires_grad_(True) for _, m in ops]
+        y_lib = run_chain([(eq, m) for (eq, _), m in zip(ops, leaves)], xg)
+        gc = torch.complex(gr, gi).reshape(xg.shape)
+        per_kernel["unrolled_bwd"][b] = {
+            "mode": mode, "max_abs_err": errs["bwd_abs"], "max_rel_err": errs["bwd_rel"],
+            "tol": f"{BWD_RTOL}*max|ref|",
+            "ms": time_ms(lambda: sk.unrolled_bwd_partials(*y, gr, gi, *banks, mp)),
+            "plain_ms": time_ms(
+                lambda: sk.unrolled_bwd_ref(*y_ref, gr, gi, *banks, mp), reps=5),
+            "library_ms": time_ms(lambda: torch.autograd.grad(
+                y_lib, [xg, *leaves], grad_outputs=gc, retain_graph=True), reps=10),
+            "library": "autograd backward alone of that einsum chain (no encoding)",
+            "bound_ms": bb, "bound_by": bby, "grid": partials.shape[0],
+        }
+        del y_lib, xg, leaves, ops
+        g, slab = partials.shape
+        rb, rby = bound(g * slab, 4 * (g + 1) * slab, card_peaks)
+        per_kernel["unrolled_reduce"][b] = {
+            "max_abs_err": red_err, "tol": f"{RED_RTOL}*max|ref|",
+            "ms": time_ms(lambda: sk.unrolled_reduce(partials)),
+            "plain_ms": time_ms(lambda: sk.unrolled_reduce_ref(partials), reps=5),
+            "library_ms": time_ms(lambda: torch.sum(partials, dim=0)),
+            "bound_ms": rb, "bound_by": rby, "shape": [g, slab],
+        }
+        del y, y_ref, gxr, gxi, gmre, gmim, partials, red, red_ref, gc, states
+        torch.cuda.empty_cache()
+    emit({"phase": "unrolled_kernels", "n_qubits": SV_QUBITS, "card": smi,
+          "results": per_kernel})
+
+    # -- 13. step_parity_8q: unrolled vs the plain block engine ----------------
+    emit({"phase": "step_parity_8q", **step_parity(bench, SV_QUBITS, "unrolled")})
+
+    # -- 14. train_8q: the 8q main path, the bench train step -----------------
+    trainer = bench.build(n_qubits=SV_QUBITS)
+    if not isinstance(trainer.model._fused, sk.FusedCircuit):
+        raise SystemExit(f"auto picked {type(trainer.model._fused).__name__} at 8q")
+    launches, row = run_train(trainer, sk, SV_NAMES)
+    emit({"phase": "train_8q", **row, "card": smi,
+          "profile": bench.profile(trainer, steps=3, top=8)})
+    del trainer
+    torch.cuda.empty_cache()
+
+    # -- 15. north_star_plain: DVSolver at 10 qubits through K3/K4 ------------
+    args = ns.parse_args(NORTH_STAR_PLAIN_ARGS)
+    torch.cuda.synchronize()
+    sk.reset_launches()
+    t0 = time.perf_counter()
+    result = ns.run(args, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ns_launches = dict(sk.LAUNCHES)
+    if not result["losses_finite"] or not all(
+            math.isfinite(result[k]) for k in ("final_loss", "rel_l2_u", "rel_l2_r")):
+        raise SystemExit(f"north_star_plain: non-finite result {result}")
+    if (result["solver"], result["backend"], result["steps"]) != (
+            "plain", "FusedCircuit", args.total_steps):
+        raise SystemExit(f"north_star_plain: {result}")
+    eval_chunks = -(-20**3 // min(512, 8 * args.batch))
+    steps = result["steps"]
+    want = {"unrolled_fwd": 2 * steps + 2 * eval_chunks, "unrolled_bwd": 2 * steps,
+            "unrolled_reduce": 2 * steps}
+    for k, v in want.items():
+        if ns_launches[k] != v:
+            raise SystemExit(f"north_star_plain: {k} launched {ns_launches[k]}, want {v}")
+        if ns_launches[f"{k}_ref"] != 0:
+            raise SystemExit(f"north_star_plain: plain version {k}_ref ran")
+    emit({"phase": "north_star_plain", "result": result, "wall_s": wall,
+          "launches": ns_launches, "card": smi})
+
+    sources = {
+        "unrolled_fwd": "qcpinn_tpu/ops/pallas_sv.py:284",
+        "unrolled_bwd": "qcpinn_tpu/ops/pallas_sv.py:317",
+        "unrolled_reduce": "qcpinn_tpu/ops/pallas_sv.py:332",
+    }
+    main_b = SV_BATCHES[0][0]
+    rows = []
+    for k, by_b in per_kernel.items():
+        r = by_b[main_b]
+        rows.append({
+            "name": k, "route": "cuda",
+            "source": "qcpinn_tpu_torch/ops/csrc/unrolled_sv.cu",
+            "replaces": sources[k], "launches": launches[k],
+            "max_abs_err": max(v["max_abs_err"] for v in by_b.values()),
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "batch": main_b,
+            "by_batch": {str(bb): v for bb, v in by_b.items()},
+        })
+    return rows
+
+
+def step_parity(bench, n_qubits, backend):
+    """One bench train step through ``backend`` against the same step on
+    the plain block engine: same params, same points; loss rtol 2e-5, every
+    grad atol 2e-4 * max(|ref|, 1e-3)."""
+    kern = bench.build(n_qubits=n_qubits, backend=backend)
+    plain = bench.build(n_qubits=n_qubits, backend="block")
+    plain.model.load_state_dict(kern.model.state_dict())
+    points = kern.sample()
+    grads = {}
+    losses = {}
+    for tag, tr in (("kernel", kern), ("plain", plain)):
+        tr.model.zero_grad(set_to_none=True)
+        loss = bench.bench_loss(tr.model, *points)
+        loss.backward()
+        losses[tag] = loss.item()
+        grads[tag] = {k: p.grad.detach().clone()
+                      for k, p in tr.model.named_parameters()}
+    if not math.isclose(losses["kernel"], losses["plain"], rel_tol=2e-5):
+        raise SystemExit(f"{n_qubits}q step loss {losses}")
+    worst = {}
+    for k, ref in grads["plain"].items():
+        scale = max(ref.abs().max().item(), 1e-3)
+        e = (grads["kernel"][k] - ref).abs().max().item()
+        if not e <= 2e-4 * scale:
+            raise SystemExit(f"{n_qubits}q step grad {k}: {e} > 2e-4 * {scale}")
+        worst[k] = e / scale
+    return {"loss_kernel": losses["kernel"], "loss_plain": losses["plain"],
+            "max_grad_err_over_scale": max(worst.values())}
+
+
+def run_train(trainer, lib, names):
+    """STEPS bench train steps after 3 warm-up steps, with ``lib``'s launch
+    counters set to 0 just before: every loss finite, each kernel in
+    ``names`` launched exactly twice a step, no plain version called.
+    Returns (the counters, the phase's numbers)."""
+    import torch
+
+    for _ in range(3):
+        trainer.step()
+    torch.cuda.synchronize()
+    lib.reset_launches()
+    t0 = time.perf_counter()
+    losses = [trainer.step() for _ in range(STEPS)]
+    losses = torch.stack(losses).tolist()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(lib.LAUNCHES)
+    if not all(math.isfinite(x) for x in losses):
+        raise SystemExit(f"non-finite loss: {losses}")
+    for k in names:
+        if launches[k] != 2 * STEPS:
+            raise SystemExit(f"{k}: {launches[k]} launches in {STEPS} steps")
+        if launches[f"{k}_ref"] != 0:
+            raise SystemExit(f"plain version {k}_ref ran {launches[k + '_ref']} times")
+    return launches, {
+        "steps": STEPS, "batch": trainer.batch,
+        "points_per_sec": trainer.batch * STEPS / dt, "ms_per_step": 1e3 * dt / STEPS,
+        "loss_first": losses[0], "loss_last": losses[-1], "launches": launches}
+
+
 def main():
     import torch
 
@@ -506,7 +843,7 @@ def main():
     card_peaks = peaks(name)
 
     # -- 2. build ----------------------------------------------------------
-    built = cuda_build.build_all(["block_chain", "gate_loop"])
+    built = cuda_build.build_all(["block_chain", "gate_loop", "unrolled_sv"])
     emit({"phase": "build", "sources": {
         f"qcpinn_tpu_torch/ops/csrc/{name}.cu": {
             "seconds": seconds, "library": os.path.relpath(path),
@@ -667,65 +1004,25 @@ def main():
           "results": per_kernel})
 
     # -- 5. one train step: kernels vs the plain block engine --------------
-    kern = bench.build(backend="block_kernel")
-    plain = bench.build(backend="block")
-    plain.model.load_state_dict(kern.model.state_dict())
-    points = kern.sample()
-    grads = {}
-    losses = {}
-    for tag, tr in (("kernel", kern), ("plain", plain)):
-        tr.model.zero_grad(set_to_none=True)
-        loss = bench.bench_loss(tr.model, *points)
-        loss.backward()
-        losses[tag] = loss.item()
-        grads[tag] = {k: p.grad.detach().clone()
-                      for k, p in tr.model.named_parameters()}
-    if not math.isclose(losses["kernel"], losses["plain"], rel_tol=2e-5):
-        raise SystemExit(f"step loss {losses}")
-    worst = {}
-    for k, ref in grads["plain"].items():
-        scale = max(ref.abs().max().item(), 1e-3)
-        e = (grads["kernel"][k] - ref).abs().max().item()
-        if not e <= 2e-4 * scale:
-            raise SystemExit(f"step grad {k}: {e} > 2e-4 * {scale}")
-        worst[k] = e / scale
-    emit({"phase": "step_parity", "loss_kernel": losses["kernel"],
-          "loss_plain": losses["plain"],
-          "max_grad_err_over_scale": max(worst.values())})
-    del kern, plain, grads
+    emit({"phase": "step_parity", **step_parity(bench, N_QUBITS, "block_kernel")})
 
     # -- 6. the main path: the bench train step ----------------------------
     trainer = bench.build()
     if not isinstance(trainer.model._fused, bk.BlockKernelCircuit):
         raise SystemExit(f"auto picked {type(trainer.model._fused).__name__}")
-    for _ in range(3):
-        trainer.step()
-    torch.cuda.synchronize()
-    bk.reset_launches()
-    t0 = time.perf_counter()
-    losses = [trainer.step() for _ in range(STEPS)]
-    losses = torch.stack(losses).tolist()
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = dict(bk.LAUNCHES)
-    if not all(math.isfinite(x) for x in losses):
-        raise SystemExit(f"non-finite loss: {losses}")
-    for k in ("block_chain_fwd", "block_chain_bwd", "block_chain_reduce"):
-        if launches[k] != 2 * STEPS:
-            raise SystemExit(f"{k}: {launches[k]} launches in {STEPS} steps")
-    for k in ("block_chain_fwd_ref", "block_chain_bwd_ref", "block_chain_reduce_ref"):
-        if launches[k] != 0:
-            raise SystemExit(f"plain version {k} ran {launches[k]} times")
-    emit({"phase": "train", "steps": STEPS, "batch": trainer.batch,
-          "points_per_sec": trainer.batch * STEPS / dt, "ms_per_step": 1e3 * dt / STEPS,
-          "loss_first": losses[0], "loss_last": losses[-1],
-          "launches": launches, "card": smi})
+    launches, row = run_train(trainer, bk, ("block_chain_fwd", "block_chain_bwd",
+                                            "block_chain_reduce"))
+    emit({"phase": "train", **row, "card": smi})
 
     del trainer
     torch.cuda.empty_cache()
 
     # -- 7-10. the 16q north-star path through the gate-loop kernels ---------
     loop_results = loop_phases(dev, gen, card_peaks, smi)
+    torch.cuda.empty_cache()
+
+    # -- 11-15. the 8q main path and the plain solver through K3/K4 ----------
+    unrolled_results = unrolled_phases(dev, gen, card_peaks, smi)
 
     sources = {
         "block_chain_fwd": "qcpinn_tpu/ops/block_pallas.py:189",
@@ -746,7 +1043,7 @@ def main():
             "batch": main_b,
             "by_batch": {str(bb): v for bb, v in by_b.items()},
         })
-    kernels += loop_results
+    kernels += loop_results + unrolled_results
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -7,9 +7,15 @@ points -> tangent-stream residuals (the primal state plus five derivative
 streams as one 6 x 1024-row evolve) -> value terms through the model (682
 rows) -> 2/4/2 loss -> backward -> clip_by_global_norm(1.0) -> Adam(5e-3).
 At 12 qubits the evolution runs in the CUDA block-chain kernels
-(ops/block_kernel.py), once forward and once backward per batch.
+(ops/block_kernel.py), at 7-9 qubits in the unrolled micro-program kernels
+(ops/sv_kernel.py), once forward and once backward per batch.
 
-    python -m qcpinn_tpu_torch.bench [--backend block] [--profile]
+    python -m qcpinn_tpu_torch.bench [--qubits 8] [--batch 256]
+                                     [--backend block] [--profile]
+
+``--qubits`` and ``--batch`` are the root script's circuit width and
+``QCPINN_BENCH_BATCH`` (and ``scripts/chip_16q_train.py <B> <n>``); the
+value terms take ``batch // 3`` points each.
 
 runs a warm-up of 30 steps, then times 3 x 30 steps as one window, and
 prints one JSON line: metric, value (points/sec over the whole window:
@@ -33,7 +39,9 @@ from .models.dv_fourier import DVFourierSolver
 from .physics.streams import dv_diffusion_residual_streams
 from .train.optim import adam, clip_by_global_norm
 
-METRIC = "collocation points/sec, 12-qubit cross_mesh QCPINN train step"
+
+def metric(n_qubits: int) -> str:
+    return f"collocation points/sec, {n_qubits}-qubit cross_mesh QCPINN train step"
 
 
 def card() -> dict:
@@ -165,16 +173,19 @@ def main():
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--qubits", type=int, default=12)
+    ap.add_argument("--batch", type=int, default=1024,
+                    help="residual points per step")
     ap.add_argument("--backend", default="auto",
                     help="evolution engine (ops/backends.py); default auto")
     ap.add_argument("--profile", action="store_true",
                     help="also print device time per step by kernel")
     args = ap.parse_args()
-    trainer = build(backend=args.backend)
+    trainer = build(batch=args.batch, n_qubits=args.qubits, backend=args.backend)
     dt = run(trainer)
     info = card()
     print(json.dumps({
-        "metric": METRIC,
+        "metric": metric(args.qubits),
         "value": trainer.batch / dt,
         "unit": "points/sec",
         "name": info["name"],

@@ -1,0 +1,82 @@
+"""DV hybrid PDE solver (port of qcpinn_tpu/models/dv_solver.py), as an
+``nn.Module``: classical encoder -> quantum circuit -> decoder.
+
+  pre:  Linear(in, hidden) Tanh Linear(n_qubits)   (raw output = the angles)
+  q:    DVCircuit (any ansatz, ``config.encoding``), exact <Z_w> readout
+  post: Linear(n_qubits, hidden) Tanh Linear(out)
+
+Unlike :class:`DVFourierSolver`, the angles are the encoder's raw output
+(no pi * tanh) and there is no skip path, so :meth:`encode` returns the
+angles alone. ``encode``/``head``/``qblock``/``use_fused`` have
+``DVFourierSolver``'s signatures, so the tangent-stream residual
+(``physics/streams.py``) and ``make_train_step`` take either model.
+``model(x)`` is the JAX package's ``model.apply(params, x)``.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .. import resolve_device
+from ..config import QCPINNConfig
+from ..ops import DVCircuit, make_fused_backend
+from . import nn_core as nc
+
+
+class DVSolver(nn.Module):
+    def __init__(self, config: QCPINNConfig, device=None):
+        super().__init__()
+        if (config.noise_depolarizing or config.noise_readout
+                or config.noise_per_gate):
+            raise NotImplementedError(
+                "noise models are not yet ported (ROADMAP queue 1 item 9)")
+        device = resolve_device(device)
+        self.config = config
+        self.n = config.num_qubits
+        in_dim, hidden, out_dim = config.classic_network
+        self.in_dim, self.hidden, self.out_dim = in_dim, hidden, out_dim
+        self.circuit = DVCircuit(
+            num_qubits=self.n,
+            num_quantum_layers=config.num_quantum_layers,
+            q_ansatz=config.q_ansatz,
+            encoding=config.encoding,
+            seed=config.seed,
+        )
+        generator = torch.Generator().manual_seed(config.seed)
+        self.pre = nc.mlp_init((in_dim, hidden, self.n), generator)
+        self.q = nn.Parameter(self.circuit.init_params(generator, device="cpu"))
+        self.post = nc.mlp_init((self.n, hidden, out_dim), generator)
+        self.to(device)
+        self._fused = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.q.device
+
+    def use_fused(self, backend: str = "auto") -> "DVSolver":
+        """Evolution engine on the model's device (ops/backends.py). The JAX
+        ``use_pallas`` catches any error and keeps the gate-by-gate path;
+        here an engine that cannot run the circuit raises, because a silent
+        switch of engine would change what a run measures and which kernels
+        it exercises without saying so."""
+        self._fused = make_fused_backend(self.circuit, backend, device=self.device)
+        return self
+
+    @property
+    def qblock(self):
+        return self._fused if self._fused is not None else self.circuit
+
+    def encode(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, in] -> [B, n]: the circuit angles (no extra columns)."""
+        return nc.mlp_apply(self.pre, x)
+
+    def head(self, feat: torch.Tensor) -> torch.Tensor:
+        return nc.mlp_apply(self.post, feat)
+
+    def forward(self, x: torch.Tensor, detach_quantum: bool = False) -> torch.Tensor:
+        z = self.qblock.apply(self.q, self.encode(x))
+        if detach_quantum:
+            # two-phase head tuning: the decoder trains on a frozen readout
+            z = z.detach()
+        return self.head(z)

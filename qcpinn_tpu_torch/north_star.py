@@ -21,8 +21,14 @@ kernels, ``xla`` the gate-by-gate circuit). Prints one JSON line with the
 JAX script's keys and the card's name and power limit. Unlike the JAX
 script, ``points_per_sec`` and the stage seconds count only the timed
 steps (the warm-up chunk of each stage is outside both), and numbers are
-not rounded. ``--solver plain`` (DVSolver) and ``--solver classical``
-(Hopfield) are not yet ported.
+not rounded.
+
+``--solver plain`` trains the plain ``DVSolver`` (encoder MLP straight to
+the angles, no Fourier map, skip or RBF head) in one stage, as the JAX
+script does: the tangent-stream residual at n >= 10, below that the
+forward-mode residual on the plain ``block`` engine.
+``--solver classical`` (Hopfield) is not yet ported (ROADMAP queue 1
+item 10).
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ from .config import QCPINNConfig
 from .data import diffusion as dd
 from .models import nn_core as nc
 from .models.dv_fourier import DVFourierSolver
+from .models.dv_solver import DVSolver
 from .physics.operators_fwd import diffusion_operator_fwd
 from .physics.streams import dv_diffusion_residual_streams
 from .train import optim as topt
@@ -69,7 +76,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--plain", action="store_true", help="use the plain DVSolver")
     ap.add_argument("--solver", default=None, choices=["fourier", "plain", "classical"])
     ap.add_argument("--backend", default="auto",
-                    help="evolution engine: auto|block|block_kernel|loop|xla")
+                    help="evolution engine: auto|block|block_kernel|loop|unrolled|xla")
     ap.add_argument("--focus-frac", type=float, default=0.5,
                     help="fraction of residual points drawn around the pulse")
     ap.add_argument("--focus-sigma", type=float, default=0.12)
@@ -157,12 +164,13 @@ def rbf_centers(args, device) -> Optional[torch.Tensor]:
     return nc.rbf_centers_from_samples(gen_c, Xp, dd.r_true(Xp), args.rbf)
 
 
+def solver_name(args) -> str:
+    return args.solver or ("plain" if args.plain else "fourier")
+
+
 def build_model(args, device):
     """(config, model, use_streams, stage-2 engine name) for ``args``."""
-    solver = args.solver or ("plain" if args.plain else "fourier")
-    if solver == "plain":
-        raise NotImplementedError(
-            "--solver plain (DVSolver) is not yet ported (next slice, with K3/K4)")
+    solver = solver_name(args)
     if solver == "classical":
         raise NotImplementedError(
             "--solver classical (Hopfield) is not yet ported (ROADMAP queue 1 item 10)")
@@ -177,11 +185,14 @@ def build_model(args, device):
         scheduler="cosine",
         epochs=args.total_steps,
     )
-    model = DVFourierSolver(
-        cfg, mapping_size=args.mapping, ff_scale=args.ff_scale,
-        skip_dim=args.skip_dim, rbf_count=args.rbf, rbf_width=args.rbf_width,
-        rbf_centers=rbf_centers(args, device), device=device,
-    )
+    if solver == "fourier":
+        model = DVFourierSolver(
+            cfg, mapping_size=args.mapping, ff_scale=args.ff_scale,
+            skip_dim=args.skip_dim, rbf_count=args.rbf, rbf_width=args.rbf_width,
+            rbf_centers=rbf_centers(args, device), device=device,
+        )
+    else:
+        model = DVSolver(cfg, device=device)
     # tangent-stream residuals at high qubit counts (nested AD through a
     # 2^16 state would cap the batch); decided before the engine, since a
     # forward-mode residual through the circuit needs the block engine
@@ -249,7 +260,8 @@ def run(args, device=None) -> dict:
     residual_fn = ((lambda X: dv_diffusion_residual_streams(model, X))
                    if use_streams else None)
     stage_info = None
-    if args.stage1_minutes > 0 and not args.no_quantum:
+    solver = solver_name(args)
+    if args.stage1_minutes > 0 and solver == "fourier" and not args.no_quantum:
         # stage 1: the decoder sees z = 0, so the circuit never runs and the
         # z-columns of the first post layer get zero gradient
         model._fused = ZeroQ(cfg.num_qubits)
@@ -289,7 +301,7 @@ def run(args, device=None) -> dict:
     result = {
         "qubits": args.qubits,
         "ansatz": args.ansatz,
-        "solver": "fourier",
+        "solver": solver,
         "focus_frac": args.focus_frac,
         "steps": done,
         "train_seconds": train_time,

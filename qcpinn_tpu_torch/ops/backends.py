@@ -9,23 +9,27 @@ qcpinn_tpu/ops/pallas_loop.py::make_fused_backend).
 - ``loop``: :class:`LoopFusedCircuit`, the gate table in the hand-written
   CUDA gate-loop kernels (1 <= n <= 16 on the card); any ansatz;
   reverse-mode AD only.
-- ``unrolled``: not yet ported.
+- ``unrolled``: :class:`FusedCircuit`, the unrolled micro-program in the
+  hand-written CUDA kernels of ``csrc/unrolled_sv.cu`` (1 <= n <= 12 on the
+  card); any ansatz; reverse-mode AD only.
 
-``auto`` is a stated rule, not a fallback: on CUDA at 10 <= n <= 12 it
-picks ``block_kernel`` when ``supports()`` holds, else ``block``; on the CPU
-it picks ``block``. This differs from the JAX default, which picks the
-plain XLA block engine at n >= 10: that choice was a TPU measurement and
-says nothing about the H100. Nothing here catches an error and carries on.
+``auto`` is a stated rule, not a fallback: on CUDA it picks ``unrolled`` at
+7 <= n <= 9 (as the compiled JAX default does), ``block_kernel`` at
+10 <= n <= 12 when ``supports()`` holds, else ``block``; on the CPU it picks
+``block``. At n >= 10 this differs from the JAX default, which picks the
+plain XLA block engine: that choice was a TPU measurement and says nothing
+about the H100. Nothing here catches an error and carries on.
 """
 
 from __future__ import annotations
 
 from .. import resolve_device
-from . import loop_kernel
+from . import loop_kernel, sv_kernel
 from .block_fused import BlockFusedCircuit
 from .block_kernel import MAX_QUBITS, BlockKernelCircuit, supports
 from .circuit import DVCircuit
 from .loop_kernel import LoopFusedCircuit
+from .sv_kernel import FusedCircuit
 
 BACKENDS = ("auto", "block", "block_kernel", "loop", "unrolled")
 
@@ -37,10 +41,20 @@ def make_fused_backend(circuit: DVCircuit, backend: str = "auto", device=None):
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; have {BACKENDS}")
     if backend == "auto":
-        on_card = device.type == "cuda" and 10 <= circuit.n <= MAX_QUBITS
-        backend = "block_kernel" if on_card and supports(circuit) else "block"
+        on_card = device.type == "cuda"
+        if on_card and 7 <= circuit.n <= 9:
+            backend = "unrolled"
+        elif on_card and 10 <= circuit.n <= MAX_QUBITS and supports(circuit):
+            backend = "block_kernel"
+        else:
+            backend = "block"
     if backend == "unrolled":
-        raise NotImplementedError(f"backend {backend!r}: not yet ported")
+        if device.type == "cuda" and circuit.n > sv_kernel.MAX_QUBITS:
+            raise ValueError(
+                f"unrolled runs n <= {sv_kernel.MAX_QUBITS} on the card; "
+                f"got n = {circuit.n}"
+            )
+        return FusedCircuit(circuit)
     if backend == "block":
         return BlockFusedCircuit(circuit)
     if backend == "loop":

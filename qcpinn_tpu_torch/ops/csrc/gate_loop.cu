@@ -37,93 +37,18 @@
 // block reduction in a fixed order (warp shuffles, then shared memory). No
 // float atomics: two runs are bit-equal.
 //
-// Plain C interface (loaded with ctypes); every entry returns
-// cudaGetLastError() after its launch.
+// The table, the addressing and the reductions are shared with
+// unrolled_sv.cu (gate_table.cuh). Plain C interface (loaded with ctypes);
+// every entry returns cudaGetLastError() after its launch.
 
-#include <cuda_runtime.h>
-#include <stddef.h>
+#include "gate_table.cuh"
 
-#define QG_MAX_STEPS 768
-#define QG_THREADS 512
-#define QG_WARPS (QG_THREADS / 32)
+#define QG_THREADS GT_MAX_THREADS
 #define QG_SMEM_MAX_QUBITS 12
-
-// One 32-bit word per step: kind[0:2] | ga[2:7] | gb[7:12] | ctrl[12] |
-// idx[16:32]. Passed by value, so it lives in the kernel's constant bank.
-struct QgTable {
-    int n_steps;
-    unsigned int step[QG_MAX_STEPS];
-};
-
-struct QgStep {
-    int kind, ga, gb, ctrl, idx;
-};
-
-__device__ __forceinline__ QgStep decode(unsigned int w) {
-    QgStep s;
-    s.kind = (int)(w & 3u);
-    s.ga = (int)((w >> 2) & 31u);
-    s.gb = (int)((w >> 7) & 31u);
-    s.ctrl = (int)((w >> 12) & 1u);
-    s.idx = (int)(w >> 16);
-    return s;
-}
-
-// p with a 0 bit inserted at position g.
-__device__ __forceinline__ int insert0(int p, int g) {
-    return ((p >> g) << (g + 1)) | (p & ((1 << g) - 1));
-}
-
-// The four amplitude indices of quad q for bits (ga, gb), in (bit_a, bit_b)
-// order: 00, 01, 10, 11.
-__device__ __forceinline__ void quad_index(int q, int ga, int gb, int idx[4]) {
-    const int lo = ga < gb ? ga : gb;
-    const int hi = ga < gb ? gb : ga;
-    const int i = insert0(insert0(q, lo), hi);
-    const int A = 1 << ga, B = 1 << gb;
-    idx[0] = i;
-    idx[1] = i | B;
-    idx[2] = i | A;
-    idx[3] = i | A | B;
-}
-
-// v[r] <- sum_c U[r][c] v[c] (or conj(U[c][r]) when CT) on one quad.
-template <bool CT>
-__device__ __forceinline__ void apply4(float* sr, float* si, const int idx[4],
-                                       const float* u) {
-    float ar[4], ai[4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-        ar[c] = sr[idx[c]];
-        ai[c] = si[idx[c]];
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-        float accr = 0.f, acci = 0.f;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-            const int e = CT ? (c * 4 + r) * 2 : (r * 4 + c) * 2;
-            const float ur = u[e];
-            const float ui = CT ? -u[e + 1] : u[e + 1];
-            accr = fmaf(ur, ar[c], fmaf(-ui, ai[c], accr));
-            acci = fmaf(ur, ai[c], fmaf(ui, ar[c], acci));
-        }
-        sr[idx[r]] = accr;
-        si[idx[r]] = acci;
-    }
-}
-
-// (yr + i yi) = (ar + i ai)(xr + i xi) + (br + i bi)(zr + i zi)
-__device__ __forceinline__ void cmadd2(float ar, float ai, float xr, float xi,
-                                       float br, float bi, float zr, float zi,
-                                       float& yr, float& yi) {
-    yr = fmaf(ar, xr, fmaf(-ai, xi, fmaf(br, zr, -bi * zi)));
-    yi = fmaf(ar, xi, fmaf(ai, xr, fmaf(br, zi, bi * zr)));
-}
 
 // One forward step on a row (shared or device memory); ends with a barrier.
 __device__ __forceinline__ void fwd_step(float* sr, float* si, int D,
-                                         QgStep st,
+                                         GtStep st,
                                          const float* __restrict__ mats,
                                          const float* __restrict__ u4,
                                          const float* __restrict__ cosb,
@@ -166,35 +91,12 @@ __device__ __forceinline__ void fwd_step(float* sr, float* si, int D,
     __syncthreads();
 }
 
-// Sum v[8] over the block in a fixed order; the result lands in thread 0.
-__device__ __forceinline__ void block_sum8(float v[8], float* red) {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-            v[e] += __shfl_down_sync(0xffffffffu, v[e], off);
-    if (lane == 0)
-#pragma unroll
-        for (int e = 0; e < 8; ++e) red[warp * 8 + e] = v[e];
-    __syncthreads();
-    if (warp == 0) {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-            v[e] = lane < QG_WARPS ? red[lane * 8 + e] : 0.f;
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1)
-                v[e] += __shfl_down_sync(0xffffffffu, v[e], off);
-        }
-    }
-}
-
 extern "C" __global__ void __launch_bounds__(QG_THREADS)
 gate_loop_fwd_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                      const float* __restrict__ mats, const float* __restrict__ u4,
                      const float* __restrict__ cosb,
                      const float* __restrict__ sinb, float* yr, float* yi,
-                     int B, int n, int use_smem, QgTable tab) {
+                     int B, int n, int use_smem, GtTable tab) {
     extern __shared__ float smem[];
     const int D = 1 << n;
     const int tid = threadIdx.x;
@@ -228,9 +130,9 @@ gate_loop_bwd_kernel(const float* __restrict__ yr, const float* __restrict__ yi,
                      const float* __restrict__ sinb, float* gxr, float* gxi,
                      float* scratch, float* __restrict__ partials, int slab,
                      int mats_len, int phase_len, int B, int n, int use_smem,
-                     QgTable tab) {
+                     GtTable tab) {
     extern __shared__ float smem[];
-    __shared__ float red[QG_WARPS * 8];
+    __shared__ float red[GT_MAX_WARPS * 8];
     const int D = 1 << n;
     const int tid = threadIdx.x;
     float* part = partials + (size_t)blockIdx.x * slab;
@@ -254,7 +156,7 @@ gate_loop_bwd_kernel(const float* __restrict__ yr, const float* __restrict__ yi,
         }
         __syncthreads();
         for (int k = tab.n_steps - 1; k >= 0; --k) {
-            const QgStep st = decode(tab.step[k]);
+            const GtStep st = decode(tab.step[k]);
             if (st.kind == 0) {
                 // the inverse is conj(M)^T: x0 = m00* y0 + m10* y1,
                 // x1 = m01* y0 + m11* y1 (and the same for g)
@@ -344,38 +246,11 @@ gate_loop_bwd_kernel(const float* __restrict__ yr, const float* __restrict__ yi,
 extern "C" __global__ void gate_loop_reduce_kernel(
     const float* __restrict__ partials, float* __restrict__ out, int slab,
     int G) {
-    for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < slab;
-         e += gridDim.x * blockDim.x) {
-        float acc = 0.f;
-        for (int c = 0; c < G; ++c) acc += partials[(size_t)c * slab + e];
-        out[e] = acc;
-    }
+    slab_sum(partials, out, slab, G);
 }
 
-static int fill_table(QgTable* tab, const unsigned int* steps, int n_steps) {
-    if (n_steps < 0 || n_steps > QG_MAX_STEPS) return (int)cudaErrorInvalidValue;
-    tab->n_steps = n_steps;
-    for (int i = 0; i < n_steps; ++i) tab->step[i] = steps[i];
-    return 0;
-}
-
-// Opt a kernel in to `smem` bytes of dynamic shared memory on the current
-// device, once per device and size.
-#define QG_MAX_DEVICES 64
-static int opt_in_smem(const void* kernel, size_t smem, size_t* done) {
-    int dev = 0;
-    int err = (int)cudaGetDevice(&dev);
-    if (err) return err;
-    if (dev >= QG_MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-    if (smem <= done[dev] || smem <= 48 * 1024) return 0;
-    err = (int)cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (!err) done[dev] = smem;
-    return err;
-}
-
-static size_t fwd_smem_done[QG_MAX_DEVICES];
-static size_t bwd_smem_done[QG_MAX_DEVICES];
+static size_t fwd_smem_done[GT_MAX_DEVICES];
+static size_t bwd_smem_done[GT_MAX_DEVICES];
 
 extern "C" const char* qc_gate_loop_error_string(int err) {
     return cudaGetErrorString((cudaError_t)err);
@@ -387,7 +262,7 @@ extern "C" int qc_gate_loop_fwd(const float* xr, const float* xi,
                                 float* yi, int B, int n,
                                 const unsigned int* steps, int n_steps,
                                 void* stream) {
-    QgTable tab;
+    GtTable tab;
     int err = fill_table(&tab, steps, n_steps);
     if (err) return err;
     const int use_smem = n <= QG_SMEM_MAX_QUBITS;
@@ -407,7 +282,7 @@ extern "C" int qc_gate_loop_bwd(const float* yr, const float* yi,
                                 int slab, int mats_len, int phase_len, int B,
                                 int n, const unsigned int* steps, int n_steps,
                                 int G, void* stream) {
-    QgTable tab;
+    GtTable tab;
     int err = fill_table(&tab, steps, n_steps);
     if (err) return err;
     const int use_smem = n <= QG_SMEM_MAX_QUBITS;

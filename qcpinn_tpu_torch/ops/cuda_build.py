@@ -2,13 +2,15 @@
 
 Each source compiles on its own into a shared library with a plain C
 interface (loaded with ctypes), for ``sm_90a``, at first use. Outputs land
-in the git-ignored ``csrc/_build/``, keyed by a hash of the source and the
-flags, so a changed source rebuilds and an unchanged one is reused.
+in the git-ignored ``csrc/_build/``, keyed by a hash of the source, the
+shared headers (``csrc/*.cuh``) and the flags, so a changed source or
+header rebuilds and an unchanged one is reused.
 :func:`build_all` starts one nvcc per source, all together.
 """
 
 from __future__ import annotations
 
+import glob
 import hashlib
 import os
 import shutil
@@ -43,10 +45,12 @@ def source(name: str) -> str:
 
 
 def library_path(name: str) -> str:
-    """Build output of ``csrc/<name>.cu``, keyed by a hash of the source
-    and the flags."""
-    with open(source(name), "rb") as f:
-        key = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """Build output of ``csrc/<name>.cu``, keyed by a hash of the source,
+    the shared headers and the flags."""
+    key = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [source(name), *sorted(glob.glob(os.path.join(CSRC, "*.cuh")))]:
+        with open(path, "rb") as f:
+            key.update(f.read())
     return os.path.join(BUILD_DIR, f"{name}-{key.hexdigest()[:16]}.so")
 
 

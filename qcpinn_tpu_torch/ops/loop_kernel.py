@@ -39,7 +39,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -56,7 +56,7 @@ KIND, A_LANE, A_EXP, IDX, HAS_CTRL, B_LANE, B_EXP, _PAD = range(8)
 K_MAT, K_DIAG, K_U2Q = 0, 1, 2
 
 MAX_QUBITS = 16  # on the card
-MAX_STEPS = 768  # QG_MAX_STEPS in csrc/gate_loop.cu
+MAX_STEPS = 768  # GT_MAX_STEPS in csrc/gate_table.cuh
 MAX_BANK = 1 << 16  # the step word keeps a 16-bit bank index
 
 LAUNCHES = {
@@ -189,17 +189,22 @@ def steps(lp: LoopProgram) -> Tuple[Step, ...]:
     )
 
 
-@functools.lru_cache(maxsize=32)
-def step_words(lp: LoopProgram) -> np.ndarray:
+def pack_steps(table: Sequence[Step]) -> np.ndarray:
     """The CUDA table: one uint32 per step, kind[0:2] | ga[2:7] | gb[7:12]
-    | ctrl[12] | idx[16:32] (QgTable in csrc/gate_loop.cu)."""
+    | ctrl[12] | idx[16:32] (GtTable in csrc/gate_table.cuh). Read-only:
+    callers cache it and share it."""
     words = [
         s.kind | (s.ga << 2) | (s.gb << 7) | (int(s.ctrl) << 12) | (s.idx << 16)
-        for s in steps(lp)
+        for s in table
     ]
     out = np.ascontiguousarray(words, dtype=np.uint32)
-    out.flags.writeable = False  # cached: every caller shares it
+    out.flags.writeable = False
     return out
+
+
+@functools.lru_cache(maxsize=32)
+def step_words(lp: LoopProgram) -> np.ndarray:
+    return pack_steps(steps(lp))
 
 
 # -- the kernels' small inputs, from the circuit parameters ----------------------
@@ -461,14 +466,19 @@ def loop_bwd_ref(yr, yi, gr, gi, mats8, u4, cos, sin, lp: LoopProgram):
             torch.stack(gc).reshape(cos.shape), torch.stack(gs).reshape(sin.shape))
 
 
-def gate_loop_reduce_ref(partials: torch.Tensor) -> torch.Tensor:
-    """Plain version of the slab reduction: [G, slab] -> [slab], summed in
-    the kernel's order (slab 0 first)."""
-    LAUNCHES["gate_loop_reduce_ref"] += 1
+def slab_sum(partials: torch.Tensor) -> torch.Tensor:
+    """[G, slab] -> [slab], summed in the reduction kernels' order (slab 0
+    first)."""
     out = partials[0].clone()
     for k in range(1, partials.shape[0]):
         out += partials[k]
     return out
+
+
+def gate_loop_reduce_ref(partials: torch.Tensor) -> torch.Tensor:
+    """Plain version of the slab reduction: [G, slab] -> [slab]."""
+    LAUNCHES["gate_loop_reduce_ref"] += 1
+    return slab_sum(partials)
 
 
 # -- the CUDA library ----------------------------------------------------------

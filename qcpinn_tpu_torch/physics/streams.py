@@ -140,8 +140,11 @@ def dv_diffusion_residual_streams(
     v_x: float = 1.0,
     v_y: float = 1.0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Convection-diffusion (u, residual) for a DVFourierSolver via tangent
-    streams. X = [t, x, y]. The evolution is the model's engine
+    """Convection-diffusion (u, residual) for a DVSolver or DVFourierSolver
+    via tangent streams. X = [t, x, y]. ``model.encode`` gives the angles
+    in its first n columns and the head's extra classical features after
+    them (none for a DVSolver: the extra slices are then [B, 0] and the
+    head sees z alone). The evolution is the model's engine
     (``model.qblock.evolve``)."""
     n = model.circuit.n
     enc0, enc_t = _enc_d1(model.encode, X, 0)

@@ -343,9 +343,8 @@ def test_north_star_cli_shape():
     assert terms["res"].kind == "residual" and terms["res"].batch == 256
     assert isinstance(terms["res"].sampler, tdd.MixtureSampler)
     assert all(terms[k].batch == 85 and terms[k].weight == 10.0 for k in list(terms)[1:])
-    for solver in ("plain", "classical"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            ns.build_model(ns.parse_args(["--solver", solver]), "cpu")
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        ns.build_model(ns.parse_args(["--solver", "classical"]), "cpu")
 
 
 def test_north_star_run_smoke():

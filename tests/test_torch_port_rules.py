@@ -15,6 +15,7 @@ import qcpinn_tpu_torch
 from qcpinn_tpu_torch import bench, resolve_device
 from qcpinn_tpu_torch.ops import backends, block_kernel as bk
 from qcpinn_tpu_torch.ops import loop_kernel as lk
+from qcpinn_tpu_torch.ops import sv_kernel as sk
 from qcpinn_tpu_torch.ops.block_fused import BlockFusedCircuit
 from qcpinn_tpu_torch.ops.circuit import DVCircuit
 
@@ -88,8 +89,8 @@ def test_auto_rule_and_unported_backends():
     assert isinstance(eng, bk.BlockKernelCircuit)
     assert isinstance(backends.make_fused_backend(cm12, "loop", device="cpu"),
                       lk.LoopFusedCircuit)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        backends.make_fused_backend(cm12, "unrolled", device="cpu")
+    assert isinstance(backends.make_fused_backend(cm12, "unrolled", device="cpu"),
+                      sk.FusedCircuit)
     with pytest.raises(ValueError):
         backends.make_fused_backend(cm12, "block_pallas", device="cpu")
     with pytest.raises(ValueError):  # a ring ansatz straddles the cut
@@ -101,7 +102,8 @@ def test_auto_rule_on_the_card(monkeypatch):
     """Building an engine touches no device, so the rule is checkable here
     with CUDA reported present."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    for n, want in ((9, BlockFusedCircuit), (10, bk.BlockKernelCircuit),
+    for n, want in ((6, BlockFusedCircuit), (7, sk.FusedCircuit), (8, sk.FusedCircuit),
+                    (9, sk.FusedCircuit), (10, bk.BlockKernelCircuit),
                     (12, bk.BlockKernelCircuit), (13, BlockFusedCircuit),
                     (16, BlockFusedCircuit)):
         eng = backends.make_fused_backend(DVCircuit(n, 1, "cross_mesh", seed=42))
@@ -211,3 +213,51 @@ def test_loop_cpu_tensors_take_the_plain_version():
     assert lk.LAUNCHES == {**{k: 0 for k in lk.LAUNCHES},
                            "gate_loop_fwd_ref": 1, "gate_loop_bwd_ref": 1}
     assert out.shape == (3, 1 << 10) and params.grad is not None
+
+
+def test_unrolled_backend_on_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    eng = backends.make_fused_backend(DVCircuit(12, 1, "cascade", seed=11), "unrolled")
+    assert isinstance(eng, sk.FusedCircuit) and len(eng.mp.steps) == 40
+    with pytest.raises(ValueError, match="n <= 12"):
+        backends.make_fused_backend(DVCircuit(13, 1, "cross_mesh"), "unrolled")
+
+
+def test_unrolled_wrappers_refuse_unsupported_cuda_work():
+    """The CUDA-side checks run before any library is loaded."""
+    mp13 = sk.compile_circuit(DVCircuit(13, 1, "cross_mesh"))
+    x = torch.zeros(2, 1 << 13)
+    with pytest.raises(ValueError, match="n <= 12"):
+        sk._check_cuda(mp13, (x, x), x, x, x, x, x)
+    mp = sk.compile_circuit(DVCircuit(8, 1, "cascade", seed=11))
+    d = 1 << 8
+    st = _FakeCuda((3, d))
+    m = _FakeCuda((3, mp.num_mats, 2, 2))
+    ph = _FakeCuda((mp.num_phases, d))
+    u4 = _FakeCuda((len(mp.u4s), 32))
+    sk._check_cuda(mp, (st, st), m, m, ph, ph, u4)  # a well-formed call passes
+    with pytest.raises(ValueError, match="CUDA float32"):
+        sk._check_cuda(mp, (torch.zeros(3, d),) * 2, m, m, ph, ph, u4)
+    with pytest.raises(ValueError, match="CUDA float32"):
+        sk._check_cuda(mp, (_FakeCuda(st.shape, torch.float64), st), m, m, ph, ph, u4)
+    with pytest.raises(ValueError, match="contiguous"):
+        sk._check_cuda(mp, (st, _FakeCuda(st.shape, contiguous=False)), m, m, ph, ph, u4)
+    with pytest.raises(ValueError, match="mre: expected"):
+        sk._check_cuda(mp, (st, st), _FakeCuda((3, mp.num_mats + 1, 2, 2)), m, ph, ph, u4)
+    with pytest.raises(ValueError, match="unsupported device"):
+        sk.unrolled_fwd(torch.zeros(1, d, device="meta"), None, None, None, None,
+                        None, None, mp)
+    assert sk._LIB is None
+
+
+def test_unrolled_cpu_tensors_take_the_plain_version():
+    circ = DVCircuit(8, 1, "cascade", seed=11)
+    eng = sk.FusedCircuit(circ)
+    params = torch.zeros(circ.num_params, requires_grad=True)
+    x = torch.rand(3, 8, requires_grad=True)
+    sk.reset_launches()
+    out = eng.apply(params, x)
+    out.sum().backward()
+    assert sk.LAUNCHES == {**{k: 0 for k in sk.LAUNCHES},
+                           "unrolled_fwd_ref": 1, "unrolled_bwd_ref": 1}
+    assert out.shape == (3, 8) and params.grad is not None and x.grad is not None
