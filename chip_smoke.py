@@ -27,13 +27,20 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                0 just before: every loss finite, each block-chain kernel
                launched exactly twice a step, no plain version called.
 7. loop_shapes the gate-loop kernels (K5/K6) against their plain versions at
-               cross_mesh n = 10, 12, 16, cascade n = 10 (controlled gates),
-               12q with 3 layers, B = 37 and B = 1: forward <= 5e-6 absolute
-               on unit-norm states, backward <= 2e-4 * max|ref| per output,
-               and the backward bit-equal across two runs.
+               every cluster size (one CTA up to 13 qubits, 2, 4, 8 CTAs at
+               14, 15, 16): cross_mesh n = 10, 12, 13, 14, 15, 16, cascade
+               n = 10 and n = 16 (controlled gates; at 16 qubits every
+               cross-rank step kind: a high target, a high target with a low
+               control, a low target with a high control, both high, u2q
+               with one and with two high bits), 12q with 3 layers, B = 37
+               and B = 1: forward <= 5e-6 absolute on unit-norm states,
+               backward <= 2e-4 * max|ref| per output, and the backward
+               bit-equal across two runs; each row with its launch shape.
 8. loop_kernels K5, K6 and their slab reduction at the 16q main path's shapes
                (B = 1536 stream rows, B = 425 value rows), same limits, with
-               times beside the plain versions and the plain block engine.
+               times beside the plain versions and the plain block engine,
+               the cluster size, the grid in clusters, the shared memory per
+               CTA and ptxas's register count.
 9. step_parity_16q one north-star stage-2 step at 16 qubits through the loop
                kernels against the same step on the plain block engine (RBF
                head, same weights and points); limits as in 5.
@@ -44,8 +51,9 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                launch counters set to 0 just before: every loss finite, K5
                and K6 launched exactly twice per stage-2 step (K5 twice more
                per evaluation chunk), no plain version called. Then the
-               stage-2 step rate on the loop and block engines, and a
-               torch.profiler window of each.
+               stage-2 step rate on the loop and block engines, interleaved
+               (loop, block, loop, block: the step time spreads across
+               processes), and a torch.profiler window of each.
 11. unrolled_shapes the unrolled kernels (K3/K4 and the slab reduction
                K4b) against their plain versions, with the encoding (from
                |0...0>) and evolve-only: cross_mesh n = 7, 8, 9, 10, 12,
@@ -72,11 +80,17 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                chunk, K4 and K4b twice per step, no plain version called.
 
 Then the kernel summary line, the nvidia-smi line, and the result line.
+
+Two measurements beside the smoke test, each one JSON line:
+
+    python3 chip_smoke.py --stage2-rate TREE   # the 16q stage-2 step of TREE's package
+    python3 chip_smoke.py --loop-step-costs    # K5/K6 time per step kind at 16q
 """
 
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -144,7 +158,8 @@ LOOP_FWD_TOL = 5e-6
 LOOP_SHAPES = (  # (n, ansatz, layers, B)
     (10, "cross_mesh", 1, 37), (12, "cross_mesh", 1, 37), (16, "cross_mesh", 1, 37),
     (10, "cascade", 1, 37), (12, "cross_mesh", 3, 37), (16, "cross_mesh", 1, 1),
-    (12, "cross_mesh", 1, 1),
+    (12, "cross_mesh", 1, 1), (13, "cross_mesh", 1, 37), (14, "cross_mesh", 1, 37),
+    (15, "cross_mesh", 1, 37), (16, "cascade", 1, 37), (16, "cascade", 1, 1),
 )
 # the 16q main path's evolves: 6 x 256 stream rows and 5 x 85 value rows
 LOOP_BATCHES = (6 * 256, 5 * (256 // 3))
@@ -308,8 +323,22 @@ class _Fixed:
         return self.X[:n], self.y[:n]
 
 
-def loop_phases(dev, gen, card_peaks, smi):
-    """Phases 7-10; returns the K5/K6/reduction rows of the summary line."""
+def ptxas_registers(report: str):
+    """{kernel: registers per thread} from nvcc -Xptxas -v's report."""
+    regs, fn = {}, None
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and fn:
+            regs[fn] = int(m.group(1))
+    return regs
+
+
+def loop_phases(dev, gen, card_peaks, smi, registers):
+    """Phases 7-10; returns the K5/K6/reduction rows of the summary line.
+    ``registers``: ptxas's count per kernel of gate_loop.cu."""
     import torch
 
     from qcpinn_tpu_torch import bench, north_star as ns
@@ -326,6 +355,7 @@ def loop_phases(dev, gen, card_peaks, smi):
         lp, _, banks, states = loop_inputs(lk, circ, b, gen, dev)
         tag = f"{ansatz}_n{n}_layers{layers}_B{b}"
         shape_errs[tag], _, _ = check_loop(lk, lp, banks, states, tag)
+        shape_errs[tag]["launch"] = lk.launch_plan(dev, lp, b)
     emit({"phase": "loop_shapes", "tol": {"fwd_abs": LOOP_FWD_TOL,
                                           "bwd": f"{BWD_RTOL}*max|ref|"},
           "results": shape_errs})
@@ -339,6 +369,7 @@ def loop_phases(dev, gen, card_peaks, smi):
     for b in LOOP_BATCHES:
         lp, params, banks, states = loop_inputs(lk, circ, b, gen, dev)
         errs, y, y_ref = check_loop(lk, lp, banks, states, f"16q_B{b}")
+        shape = lk.launch_plan(dev, lp, b)
         xr, xi, gr, gi = states
         bank_bytes = 4 * sum(t.numel() for t in banks)
         f_ops, b_ops = step_work(lk, lk.steps(lp), lp.n, b)
@@ -353,7 +384,9 @@ def loop_phases(dev, gen, card_peaks, smi):
                 "library_ms": time_ms(lambda: run_chain(ops, xc), reps=10),
                 "library": "the block engine's complex einsum chain, matrices "
                            "and phases built once (cuBLAS, TF32 off)",
-                "bound_ms": fb, "bound_by": fby,
+                "bound_ms": fb, "bound_by": fby, "cluster": shape["cluster"],
+                "grid": shape["fwd_grid"], "smem_per_cta": shape["fwd_smem"],
+                "registers": registers.get("gate_loop_fwd_kernel"),
             }
         out_bytes = 4 * (banks[0].numel() + 2 * banks[2].numel())
         gxr, gxi, partials = lk.gate_loop_bwd_partials(*y, gr, gi, *banks, lp)
@@ -379,8 +412,13 @@ def loop_phases(dev, gen, card_peaks, smi):
             "library_ms": time_ms(lambda: torch.autograd.grad(
                 y_lib, [xg, *leaves], grad_outputs=gc, retain_graph=True), reps=10),
             "library": "autograd backward alone of that einsum chain",
-            "bound_ms": bb, "bound_by": bby, "grid": partials.shape[0],
+            "bound_ms": bb, "bound_by": bby, "cluster": shape["cluster"],
+            "grid": partials.shape[0], "smem_per_cta": shape["bwd_smem"],
+            "registers": registers.get("gate_loop_bwd_kernel"),
         }
+        if partials.shape[0] != shape["bwd_grid"]:
+            raise SystemExit(f"gate_loop_bwd B={b}: {partials.shape[0]} slabs, "
+                             f"want {shape['bwd_grid']}")
         del y_lib, xg, leaves, ops
         g, slab = partials.shape
         rb, rby = bound(g * slab, 4 * (g + 1) * slab, card_peaks)
@@ -456,10 +494,11 @@ def loop_phases(dev, gen, card_peaks, smi):
             raise SystemExit(f"north_star: plain version {k} ran {launches[k]} times")
     if s2 < 20 or result["backend"] != "LoopFusedCircuit":
         raise SystemExit(f"north_star: stage 2 ran {s2} steps on {result['backend']}")
-    # the stage-2 step rate on each engine, same weights, one process
-    rates = {}
+    # the stage-2 step rate on each engine, same weights, one process, in
+    # turns
+    rates = {"loop": [], "block": []}
     profiles = {}
-    for backend in ("loop", "block"):
+    for backend in ("loop", "block", "loop", "block"):
         st = Stage2Stepper(args, backend, dev)
         for _ in range(3):
             st.step()
@@ -470,8 +509,9 @@ def loop_phases(dev, gen, card_peaks, smi):
         float(loss)
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t1) / RATE_STEPS
-        rates[backend] = {"ms_per_step": 1e3 * dt, "points_per_sec": args.batch / dt}
-        profiles[backend] = bench.profile(st, steps=3, top=8)
+        rates[backend].append({"ms_per_step": 1e3 * dt, "points_per_sec": args.batch / dt})
+        if backend not in profiles:
+            profiles[backend] = bench.profile(st, steps=3, top=8)
         del st
         torch.cuda.empty_cache()
     emit({"phase": "north_star", "result": result, "wall_s": wall,
@@ -496,6 +536,8 @@ def loop_phases(dev, gen, card_peaks, smi):
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "batch": LOOP_BATCHES[0],
+            **{key: r[key] for key in ("cluster", "grid", "smem_per_cta", "registers")
+               if key in r},
             "by_batch": {str(bb): v for bb, v in by_b.items()},
         })
     return rows
@@ -813,9 +855,99 @@ def run_train(trainer, lib, names):
         "loss_first": losses[0], "loss_last": losses[-1], "launches": launches}
 
 
+def stage2_rate(tree: str):
+    """``--stage2-rate TREE``: the 16q north-star stage-2 step on the loop
+    engine with TREE's ``qcpinn_tpu_torch`` (driven by this file's
+    Stage2Stepper): 3 warm-up steps, 20 timed, a 3-step profile; one JSON
+    line. To compare two trees, run it once per tree in one call, in turns
+    (A, B, B, A)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+    sys.path.insert(0, os.path.abspath(tree))
+    import qcpinn_tpu_torch
+    from qcpinn_tpu_torch import bench, north_star as ns
+
+    dev = torch.device("cuda")
+    args = ns.parse_args(NORTH_STAR_ARGS)
+    st = Stage2Stepper(args, "loop", dev)
+    for _ in range(3):
+        st.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        loss = st.step()
+    float(loss)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / 20
+    prof = bench.profile(st, steps=3, top=4)
+    emit({"tree": tree, "package": os.path.dirname(qcpinn_tpu_torch.__file__),
+          "ms_per_step": 1e3 * dt, "points_per_sec": args.batch / dt, **prof,
+          "card": nvidia_smi_line()})
+
+
+def loop_step_costs():
+    """``--loop-step-costs``: K5 and K6 time per table step at the 16q
+    main path's stream batch (B = 1536), on 32-step tables of one step kind
+    each: mats on bits below 13 (one CTA's slice), mats on bits 13-15
+    (across the cluster), diag (two phase planes, as the 16q table has),
+    u2q within a slice, across 2 CTAs and across 4; one JSON line."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from qcpinn_tpu_torch.ops import loop_kernel as lk
+
+    n, b, steps = 16, LOOP_BATCHES[0], 32
+    kinds = {  # (kind, ga, gb, ctrl, bank index) per step
+        "mat_local": [(0, g % 13, 0, 0, g) for g in range(steps)],
+        "mat_cross": [(0, 13 + g % 3, 0, 0, g) for g in range(steps)],
+        "diag": [(1, 0, 0, 0, g % 2) for g in range(steps)],
+        "u2q_local": [(2, g % 12 + 1, g % 12, 1, 0) for g in range(steps)],
+        "u2q_cross2": [(2, 13 + g % 3, 12 - g % 5, 1, 0) for g in range(steps)],
+        "u2q_cross4": [(2, 13 + g % 3, 13 + (g + 1) % 3, 1, 0) for g in range(steps)],
+    }
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    lo_bits = lk.LO_BITS
+
+    def axis_exp(g):
+        return (1, g) if g < lo_bits else (0, g - lo_bits)
+
+    out = {}
+    for name, rows in kinds.items():
+        table = [[k, *axis_exp(ga), idx, ctrl, *axis_exp(gb), 0]
+                 for k, ga, gb, ctrl, idx in rows]
+        lp = lk.LoopProgram(
+            n=n, hi=1 << (n - lo_bits), lo=1 << lo_bits,
+            table=np.asarray(table, np.int32),
+            num_mats=sum(r[0] == lk.K_MAT for r in rows),
+            num_phases=2 if name == "diag" else 0,
+            u4_bank=np.asarray(np.random.default_rng(0).normal(size=(1, 32)), np.float32))
+        m = torch.randn(max(lp.num_mats, 1), 8, generator=gen, device=dev)
+        phi = torch.rand(max(lp.num_phases, 1), lp.hi, lp.lo, generator=gen, device=dev)
+        banks = (m, torch.tensor(lp.u4_bank, device=dev), torch.cos(phi), torch.sin(phi))
+        x = 1e-2 * torch.randn(4, b, lp.hi, lp.lo, generator=gen, device=dev)
+        xr, xi, gr, gi = (x[i].contiguous() for i in range(4))
+        y = lk.gate_loop_fwd(xr, xi, *banks, lp)
+        fwd = time_ms(lambda: lk.gate_loop_fwd(xr, xi, *banks, lp), reps=5)
+        bwd = time_ms(lambda: lk.gate_loop_bwd_partials(*y, gr, gi, *banks, lp), reps=5)
+        out[name] = {"fwd_ms_per_step": fwd / steps, "bwd_ms_per_step": bwd / steps}
+        del x, xr, xi, gr, gi, y
+    emit({"loop_step_costs": out, "n_qubits": n, "batch": b,
+          "launch": lk.launch_plan(dev, lp, b), "card": nvidia_smi_line()})
+
+
 def main():
     import torch
 
+    if len(sys.argv) == 3 and sys.argv[1] == "--stage2-rate":
+        return stage2_rate(sys.argv[2])
+    if sys.argv[1:] == ["--loop-step-costs"]:
+        return loop_step_costs()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -1018,7 +1150,8 @@ def main():
     torch.cuda.empty_cache()
 
     # -- 7-10. the 16q north-star path through the gate-loop kernels ---------
-    loop_results = loop_phases(dev, gen, card_peaks, smi)
+    loop_results = loop_phases(dev, gen, card_peaks, smi,
+                               ptxas_registers(built["gate_loop"][2]))
     torch.cuda.empty_cache()
 
     # -- 11-15. the 8q main path and the plain solver through K3/K4 ----------

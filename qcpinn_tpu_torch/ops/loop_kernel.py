@@ -6,13 +6,15 @@ the same packed ``[S, 8]`` int32 gate table as the JAX package (kind, wire
 axis and exponent, bank index, control). ``csrc/gate_loop.cu`` holds two
 hand-written CUDA kernels for Hopper (sm_90a) and a reduction pass:
 
-- ``gate_loop_fwd`` replaces ``pallas_loop.py::_forward_kernel``: one CTA
-  per sample walks the table; at n <= 12 the sample stays in shared
-  memory, above that the CTA works in place on its row in device memory.
+- ``gate_loop_fwd`` replaces ``pallas_loop.py::_forward_kernel``: a
+  thread-block cluster per sample walks the table with the sample in its
+  CTAs' shared memory (:func:`cluster_plan`: one CTA up to 13 qubits, 2, 4
+  and 8 at 14, 15 and 16).
 - ``gate_loop_bwd`` replaces ``pallas_loop.py::_backward_kernel``: the
-  reverse sweep with inverse gates, O(1) extra state. The ``[K, 8]``
-  matrix and ``[P, 2^n]`` phase cotangents are batch sums: a persistent
-  grid of G CTAs writes one partial slab per CTA, and ``gate_loop_reduce``
+  reverse sweep with inverse gates, O(1) extra state, the state and its
+  cotangent in the cluster's shared memory. The ``[K, 8]`` matrix and
+  ``[P, 2^n]`` phase cotangents are batch sums: a persistent grid of G
+  clusters writes one partial slab per cluster, and ``gate_loop_reduce``
   adds the slabs in a fixed order (no float atomics, deterministic).
 
 Each kernel has a plain PyTorch version beside it (``*_ref``), which runs
@@ -56,6 +58,9 @@ KIND, A_LANE, A_EXP, IDX, HAS_CTRL, B_LANE, B_EXP, _PAD = range(8)
 K_MAT, K_DIAG, K_U2Q = 0, 1, 2
 
 MAX_QUBITS = 16  # on the card
+# a CTA holds 2^13 amplitudes of a sample: 128 KB of state and cotangent
+# backward, so 16 qubits take a cluster of 8 CTAs, the portable maximum
+LOCAL_BITS = 13
 MAX_STEPS = 768  # GT_MAX_STEPS in csrc/gate_table.cuh
 MAX_BANK = 1 << 16  # the step word keeps a 16-bit bank index
 
@@ -491,11 +496,12 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(cuda_build.build("gate_loop")[0])
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.qc_gate_loop_fwd.argtypes = [p] * 8 + [i, i, p, i, p]
-        lib.qc_gate_loop_bwd.argtypes = [p] * 12 + [i] * 5 + [p, i, i, p]
+        lib.qc_gate_loop_fwd.argtypes = [p] * 8 + [i, i, i, p, i, i, p]
+        lib.qc_gate_loop_bwd.argtypes = [p] * 11 + [i] * 6 + [p, i, i, p]
         lib.qc_gate_loop_reduce.argtypes = [p, p, i, i, p]
+        lib.qc_gate_loop_max_clusters.argtypes = [i, i, i, i, ctypes.POINTER(i)]
         for fn in (lib.qc_gate_loop_fwd, lib.qc_gate_loop_bwd,
-                   lib.qc_gate_loop_reduce):
+                   lib.qc_gate_loop_reduce, lib.qc_gate_loop_max_clusters):
             fn.restype = i
         lib.qc_gate_loop_error_string.argtypes = [i]
         lib.qc_gate_loop_error_string.restype = ctypes.c_char_p
@@ -509,12 +515,32 @@ def _raise_on(lib, err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
 
 
+@dataclasses.dataclass(frozen=True)
+class ClusterPlan:
+    """How the kernels split one sample: a cluster of ``cluster`` CTAs, each
+    holding amplitudes [r 2^local_bits, (r + 1) 2^local_bits) in shared
+    memory, with ``fwd_smem`` / ``bwd_smem`` bytes of it per CTA."""
+
+    local_bits: int
+    cluster: int
+    fwd_smem: int
+    bwd_smem: int
+
+
+def cluster_plan(n: int, num_mats: int = MAX_STEPS) -> ClusterPlan:
+    """The partition of an n-qubit sample (csrc/gate_loop.cu): the forward
+    holds the slice's state, the backward its state and cotangent and the
+    CTA's [K, 8] matrix sums (K = ``num_mats``, at most a table's length)."""
+    if not 1 <= n <= MAX_QUBITS:
+        raise ValueError(f"gate_loop kernels take 1 <= n <= {MAX_QUBITS}; got n = {n}")
+    lb = min(n, LOCAL_BITS)
+    d = 1 << lb
+    return ClusterPlan(lb, 1 << (n - lb), 4 * 2 * d, 4 * (4 * d + 8 * max(num_mats, 1)))
+
+
 def check_program(lp: LoopProgram) -> None:
     """Raise unless the CUDA kernels can run ``lp``."""
-    if not 1 <= lp.n <= MAX_QUBITS:
-        raise ValueError(
-            f"gate_loop kernels take 1 <= n <= {MAX_QUBITS}; got n = {lp.n}"
-        )
+    cluster_plan(lp.n)
     if lp.table.shape[0] > MAX_STEPS:
         raise ValueError(f"gate table has {lp.table.shape[0]} steps > {MAX_STEPS}")
     if max(lp.num_mats, lp.num_phases, lp.u4_bank.shape[0]) > MAX_BANK:
@@ -563,10 +589,12 @@ def gate_loop_fwd(xr, xi, mats8, u4, cos, sin, lp: LoopProgram):
         return yr, yi
     lib = _lib()
     words = step_words(lp)
+    plan = cluster_plan(lp.n)
     err = lib.qc_gate_loop_fwd(
         xr.data_ptr(), xi.data_ptr(), mats8.data_ptr(), u4.data_ptr(),
         cos.data_ptr(), sin.data_ptr(), yr.data_ptr(), yi.data_ptr(), b, lp.n,
-        words.ctypes.data, len(words),
+        plan.local_bits, words.ctypes.data, len(words),
+        grid_size(max_clusters(xr.device, lp, bwd=False), b),
         torch.cuda.current_stream(xr.device).cuda_stream,
     )
     _raise_on(lib, err, "gate_loop_fwd")
@@ -574,11 +602,48 @@ def gate_loop_fwd(xr, xi, mats8, u4, cos, sin, lp: LoopProgram):
     return yr, yi
 
 
-def grid_size(device: torch.device, b: int) -> int:
-    """Persistent backward grid: two CTAs per SM, never more than the
-    batch."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(b, 2 * sms))
+_MAX_CLUSTERS: Dict[Tuple[int, bool, int, int], int] = {}
+
+
+def max_clusters(device: torch.device, lp: LoopProgram, bwd: bool) -> int:
+    """The most clusters of the forward or backward kernel that ``device``
+    holds at once (cudaOccupancyMaxActiveClusters), asked once per device
+    and shape. Raises where not one fits."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    plan = cluster_plan(lp.n, lp.num_mats)
+    key = (index, bwd, lp.n, plan.bwd_smem)
+    if key not in _MAX_CLUSTERS:
+        lib = _lib()
+        out = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            err = lib.qc_gate_loop_max_clusters(
+                int(bwd), lp.n, plan.local_bits, 8 * max(lp.num_mats, 1),
+                ctypes.byref(out))
+        _raise_on(lib, err, "cudaOccupancyMaxActiveClusters")
+        if out.value < 1:
+            raise RuntimeError(
+                f"no cluster of {plan.cluster} CTAs with "
+                f"{plan.bwd_smem if bwd else plan.fwd_smem} bytes of shared "
+                "memory each fits on the card")
+        _MAX_CLUSTERS[key] = out.value
+    return _MAX_CLUSTERS[key]
+
+
+def grid_size(clusters: int, b: int) -> int:
+    """Persistent grid, in clusters: as many as the card holds at once,
+    never more than the batch."""
+    return max(1, min(b, clusters))
+
+
+def launch_plan(device: torch.device, lp: LoopProgram, b: int) -> Dict[str, int]:
+    """The kernels' launch shape for a batch of ``b`` (for reports)."""
+    plan = cluster_plan(lp.n, lp.num_mats)
+    return {"local_bits": plan.local_bits, "cluster": plan.cluster,
+            "fwd_smem": plan.fwd_smem, "bwd_smem": plan.bwd_smem,
+            "fwd_grid": grid_size(max_clusters(device, lp, bwd=False), b),
+            "bwd_grid": grid_size(max_clusters(device, lp, bwd=True), b)}
 
 
 def gate_loop_reduce(partials: torch.Tensor) -> torch.Tensor:
@@ -601,28 +666,26 @@ def gate_loop_reduce(partials: torch.Tensor) -> torch.Tensor:
 
 def gate_loop_bwd_partials(yr, yi, gr, gi, mats8, u4, cos, sin, lp: LoopProgram):
     """Backward kernel alone (CUDA tensors only): returns (gxr, gxi,
-    partials [G, slab]); :func:`gate_loop_reduce` finishes the batch sums.
-    A slab is mats8's layout, then cos's, then sin's."""
+    partials [G, slab]), one slab per cluster; :func:`gate_loop_reduce`
+    finishes the batch sums. A slab is mats8's layout, then cos's, then
+    sin's."""
     _check_cuda(lp, (yr, yi, gr, gi), mats8, u4, cos, sin)
     b = yr.shape[0]
     if b == 0:
         raise ValueError("gate_loop_bwd needs a non-empty batch")
-    d = 1 << lp.n
     lib = _lib()
     words = step_words(lp)
-    g = grid_size(yr.device, b)
+    g = grid_size(max_clusters(yr.device, lp, bwd=True), b)
     slab = mats8.numel() + cos.numel() + sin.numel()
     gxr, gxi = torch.empty_like(yr), torch.empty_like(yi)
     partials = torch.empty((g, slab), dtype=torch.float32, device=yr.device)
-    # above 12 qubits the state of each CTA's current sample lives here
-    scratch = torch.empty((g, 2, d) if lp.n > 12 else (0,),
-                          dtype=torch.float32, device=yr.device)
     err = lib.qc_gate_loop_bwd(
         yr.data_ptr(), yi.data_ptr(), gr.data_ptr(), gi.data_ptr(),
         mats8.data_ptr(), u4.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-        gxr.data_ptr(), gxi.data_ptr(), scratch.data_ptr(), partials.data_ptr(),
-        slab, mats8.numel(), cos.numel(), b, lp.n, words.ctypes.data,
-        len(words), g, torch.cuda.current_stream(yr.device).cuda_stream,
+        gxr.data_ptr(), gxi.data_ptr(), partials.data_ptr(),
+        slab, mats8.numel(), cos.numel(), b, lp.n, cluster_plan(lp.n).local_bits,
+        words.ctypes.data, len(words), g,
+        torch.cuda.current_stream(yr.device).cuda_stream,
     )
     _raise_on(lib, err, "gate_loop_bwd")
     LAUNCHES["gate_loop_bwd"] += 1

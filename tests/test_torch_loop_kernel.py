@@ -122,6 +122,31 @@ def test_plain_kernels_match_the_pallas_kernels(ansatz, fuse):
         assert tlp.num_phases == 0 and not got_g[3].any() and not got_g[4].any()
 
 
+@pytest.mark.parametrize("n", range(1, 18))
+def test_cluster_plan(n):
+    """One sample per thread-block cluster: 2^min(n, 13) amplitudes per
+    CTA, at most 8 CTAs (the portable cluster size), and both kernels within
+    a CTA's 227 KB of shared memory whatever the table's length; n = 17 is
+    refused."""
+    if n > 16:
+        with pytest.raises(ValueError, match="1 <= n <= 16"):
+            lk.cluster_plan(n)
+        return
+    plan = lk.cluster_plan(n)
+    lb = min(n, 13)
+    assert (plan.local_bits, plan.cluster) == (lb, 2 ** (n - lb)) and plan.cluster <= 8
+    assert plan.fwd_smem == 8 * 2**lb  # (re, im) float32 per amplitude
+    assert plan.bwd_smem == 16 * 2**lb + 32 * lk.MAX_STEPS  # + the [K, 8] sums
+    assert max(plan.fwd_smem, plan.bwd_smem) <= 227 * 1024
+    assert lk.cluster_plan(n, num_mats=3).bwd_smem == 16 * 2**lb + 32 * 3
+
+
+@pytest.mark.parametrize("clusters", [1, 15, 396])
+def test_grid_size_never_exceeds_the_batch(clusters):
+    for b in (1, 7, 37, 425, 1536):
+        assert 1 <= lk.grid_size(clusters, b) == min(clusters, b)
+
+
 def test_reduce_ref_sums_in_slab_order():
     parts = torch.tensor(np.random.default_rng(1).normal(size=(7, 33)), dtype=torch.float32)
     out = lk.gate_loop_reduce(parts)
