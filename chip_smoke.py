@@ -11,21 +11,37 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                source, started together.
 3. kernel_shapes the other sizes ``auto`` sends to the block-chain kernels
                (n = 10, 11, 12 with 3 layers; B = 37 and B = 1), and uneven
-               block splits (a 128-wide block: the backward's matrix
-               cotangent then has more 4x4 tiles than the CTA has threads)
-               against the plain versions, same limits as below.
+               block splits (a 128-wide block: one sample per backward CTA,
+               one matrix buffer) against the plain versions, same limits as
+               below, the backward bit-equal across two runs; a split with a
+               block narrower than 32 (n = 10, hb = 7) must be refused.
 4. kernels     every block-chain kernel at the 12q main path's shapes
                (B = 6144 stream rows and B = 682 value rows) against its
                plain PyTorch version on the same inputs: forward <= 2e-5
                (unit-norm states), backward <= 2e-4 * max|ref| per output,
-               reduction <= 1e-6 * max|ref|. Times from CUDA events (median).
+               reduction <= 1e-6 * max|ref|. Times from CUDA events (median);
+               K2's bound at a third of the TF32 tensor-core peak
+               (3xTF32, what it runs on), beside its FP32 SIMT bound, its
+               registers and shared memory.
 5. step_parity one 12-qubit train step through the kernels against the same
                step on the plain block engine: same params, same points; loss
                rtol 2e-5, every grad atol 2e-4 * max(|ref|, 1e-3).
 6. train       the 12q main path: the bench train step (B = 1024, hidden 50,
-               lr 5e-3, seed 42) for 30 steps with the launch counters set to
-               0 just before: every loss finite, each block-chain kernel
-               launched exactly twice a step, no plain version called.
+               lr 5e-3, seed 42), a captured CUDA graph, with the launch
+               counters set to 0 just before: 3 eager warm-ups, the capture
+               and a replay, then 30 timed replays. Every loss finite, each
+               block-chain kernel launched exactly twice in each step the
+               counters see (the warm-ups and the captured step; replays
+               launch without Python), no plain version called; then a
+               torch.profiler window.
+6b. graph      each step the entry points capture (12q and 8q bench, 16q
+               north-star stage 1 and stage 2 through ``north_star``'s own
+               stage setup and ``run_steps``) against its eager plain
+               version from the same seed: 13 steps each (3 eager warm-ups,
+               then 10 replays), every loss within rtol 2e-5, every parameter
+               within 2e-4 * max(|ref|, 1e-3); then eager, graph, graph, eager
+               in one process: ms a step, launches a step, device time and
+               idle share of the unprofiled step.
 7. loop_shapes the gate-loop kernels (K5/K6) against their plain versions at
                every cluster size (one CTA up to 13 qubits, 2, 4, 8 CTAs at
                14, 15, 16): cross_mesh n = 10, 12, 13, 14, 15, 16, cascade
@@ -49,11 +65,13 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                stage 1 its minimum chunk (500 steps), stage 2 50 steps, then
                the rel-L2 evaluation on the 20^3 grid by streams, with the
                launch counters set to 0 just before: every loss finite, K5
-               and K6 launched exactly twice per stage-2 step (K5 twice more
-               per evaluation chunk), no plain version called. Then the
-               stage-2 step rate on the loop and block engines, interleaved
-               (loop, block, loop, block: the step time spreads across
-               processes), and a torch.profiler window of each.
+               and K6 launched exactly twice per stage-2 step the counters
+               see (the warm-ups and the captured step; K5 twice more per
+               evaluation chunk), no plain version called; ``auto`` picks
+               the loop engine at 16 qubits. Then the graphed stage-2 step
+               rate on the loop and block engines, interleaved (loop, block,
+               loop, block: the step time spreads across processes), and a
+               torch.profiler window of each.
 11. unrolled_shapes the unrolled kernels (K3/K4 and the slab reduction
                K4b) against their plain versions, with the encoding (from
                |0...0>) and evolve-only: cross_mesh n = 7, 8, 9, 10, 12,
@@ -69,15 +87,17 @@ Phases, each printed as one JSON line; any failure exits non-zero:
 13. step_parity_8q one 8q bench step through ``unrolled`` against the plain
                block engine; limits as in 5.
 14. train_8q   the 8q main path: the bench train step at 8 qubits (``auto``
-               picks FusedCircuit) for 30 steps with the launch counters set
-               to 0 just before: every loss finite, K3, K4 and K4b launched
-               exactly twice a step, no plain version called; then a
-               torch.profiler window.
+               picks FusedCircuit), a captured CUDA graph, driven as in 6
+               with the launch counters set to 0 just before: every loss finite,
+               K3, K4 and K4b launched exactly twice in each step the
+               counters see, no plain version called; then a torch.profiler
+               window.
 15. north_star_plain ``north_star.run`` with --solver plain (DVSolver, one
                stage) at 10 qubits, B = 256, hidden 64, --backend unrolled,
                50 steps, then the 20^3 evaluation by streams: every loss
-               finite, K3 launched twice per step and twice per evaluation
-               chunk, K4 and K4b twice per step, no plain version called.
+               finite, K3 launched twice per step the counters see and twice
+               per evaluation chunk, K4 and K4b twice per step they see, no
+               plain version called.
 
 Then the kernel summary line, the nvidia-smi line, and the result line.
 
@@ -103,12 +123,13 @@ BWD_RTOL = 2e-4
 RED_RTOL = 1e-6
 N_QUBITS = 12
 
-# dense FP32 (non-tensor) rate and memory rate from NVIDIA's data sheets
+# dense FP32 (non-tensor) rate, memory rate and dense TF32 tensor-core rate
+# (half the data sheets' rate with sparsity) from NVIDIA's data sheets
 PEAKS = {
-    "PCIe": (51.2e12, 2.0e12),
-    "NVL": (60.0e12, 3.9e12),
-    "H200": (67.0e12, 4.8e12),
-    "H100": (67.0e12, 3.35e12),  # SXM
+    "PCIe": (51.2e12, 2.0e12, 378e12),
+    "NVL": (60.0e12, 3.9e12, 417.5e12),
+    "H200": (67.0e12, 4.8e12, 495e12),
+    "H100": (67.0e12, 3.35e12, 495e12),  # SXM
 }
 
 
@@ -124,6 +145,7 @@ def nvidia_smi_line() -> str:
 
 
 def peaks(name: str):
+    """(FP32 FLOP/s, bytes/s, TF32 tensor-core FLOP/s) of the card."""
     for key in ("PCIe", "NVL", "H200", "H100"):
         if key in name:
             return PEAKS[key]
@@ -148,8 +170,10 @@ def time_ms(fn, reps=TIME_REPS):
     return statistics.median(ts)
 
 
-def bound(flops, nbytes, card_peaks):
-    t_ops = flops / card_peaks[0] * 1e3
+def bound(flops, nbytes, card_peaks, flop_rate=None):
+    """The least time (ms) for ``flops`` at ``flop_rate`` (default the FP32
+    peak) and ``nbytes`` at the memory rate, and which of the two bounds it."""
+    t_ops = flops / (flop_rate or card_peaks[0]) * 1e3
     t_bytes = nbytes / card_peaks[1] * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -234,43 +258,41 @@ def check_loop(lk, lp, banks, states, tag):
     return {"fwd_abs": e_fwd, "bwd_abs": e_abs, "bwd_rel": e_rel}, y, y_ref
 
 
-class Stage2Stepper:
-    """North-star stage-2 steps (streams residual, fused value walls, clip +
-    cosine Adam at lr/5) of a model on one engine, for parity and timing."""
+class NorthStarStepper:
+    """One stage of ``north_star.run`` on a fresh model from ``args``' seed,
+    set up by the run's own ``make_stage``: stage 1 (zeroed circuit,
+    forward-mode residual) or stage 2 (streams residual through
+    ``backend``). ``steps(n)`` takes n steps through the stage's
+    ``run_steps``, as the run does (on the card, the captured graph), or
+    with ``eager`` through ``step_fn`` (the plain version); both return the
+    loss of each step."""
 
-    def __init__(self, args, backend, dev, state_dict=None, terms=None,
-                 optimizer=None):
-        import zlib
-
-        import torch
-
+    def __init__(self, args, backend, dev, stage=2, eager=False, state_dict=None,
+                 terms=None, optimizer=None):
         from qcpinn_tpu_torch import north_star as ns
-        from qcpinn_tpu_torch.physics.operators_fwd import diffusion_operator_fwd
-        from qcpinn_tpu_torch.physics.streams import dv_diffusion_residual_streams
-        from qcpinn_tpu_torch.train import optim as topt
-        from qcpinn_tpu_torch.train.loop import make_train_step
 
-        cfg, model, _, _ = ns.build_model(args, dev)
+        cfg, model, use_streams, _ = ns.build_model(args, dev)
         if state_dict is not None:
             model.load_state_dict(state_dict)
-        ns.set_engine(model, args, backend)
         self.model = model
-        opt = optimizer or topt.make_optimizer(args.lr / 5.0, grad_clip=1.0,
-                                               schedule="cosine", epochs=args.total_steps)
-        self.params = [p for p in model.parameters() if p.requires_grad]
-        self.state = opt.init(self.params)
-        self.sched = topt.plateau_init(dev)
-        self.step_fn, _ = make_train_step(
-            model, diffusion_operator_fwd, terms or ns.make_terms(args), opt, cfg,
-            residual_fn=lambda X: dv_diffusion_residual_streams(model, X),
-            fuse_value_terms=True,
-        )
-        self.gen = torch.Generator(device=dev).manual_seed(zlib.crc32(b"stage2"))
+        self.eager = eager
+        self.stage = ns.make_stage(model, cfg, args, terms or ns.make_terms(args),
+                                   f"stage{stage}", backend, use_streams, optimizer)
+
+    @property
+    def graph(self):
+        """The stage's CapturedStep (None before the first graphed call)."""
+        return self.stage.run_steps.captured
+
+    def steps(self, n):
+        import torch
+
+        if self.eager:
+            return torch.stack([self.stage.step()["loss"] for _ in range(n)])
+        return self.stage.run(n)["loss"]
 
     def step(self):
-        self.state, self.sched, m = self.step_fn(self.params, self.state, self.sched,
-                                                 self.gen)
-        return m["loss"]
+        return self.steps(1)[0]
 
 
 def block_chain_ops(blk, params):
@@ -346,7 +368,7 @@ def loop_phases(dev, gen, card_peaks, smi, registers):
     from qcpinn_tpu_torch.ops.block_fused import BlockFusedCircuit
     from qcpinn_tpu_torch.ops.circuit import DVCircuit
     from qcpinn_tpu_torch.train import optim as topt
-    from qcpinn_tpu_torch.train.loop import TermSpec
+    from qcpinn_tpu_torch.train.loop import WARMUP_STEPS, TermSpec
 
     # -- 7. loop_shapes ------------------------------------------------------
     shape_errs = {}
@@ -449,8 +471,8 @@ def loop_phases(dev, gen, card_peaks, smi, registers):
     losses, grads = {}, {}
     sd = None
     for backend in ("loop", "block"):
-        st = Stage2Stepper(args, backend, dev, state_dict=sd, terms=fixed,
-                           optimizer=opt)
+        st = NorthStarStepper(args, backend, dev, eager=True, state_dict=sd,
+                              terms=fixed, optimizer=opt)
         sd = sd or {k: v.clone() for k, v in st.model.state_dict().items()}
         losses[backend] = st.step().item()
         grads[backend] = dict(zip([k for k, p in st.model.named_parameters()
@@ -483,9 +505,12 @@ def loop_phases(dev, gen, card_peaks, smi, registers):
             math.isfinite(result[k]) for k in ("final_loss", "rel_l2_u", "rel_l2_r")):
         raise SystemExit(f"north_star: non-finite result {result}")
     s2 = result["stage2_steps"]
+    # the counters see a stage's warm-up steps and its captured step, not
+    # the replays (train/loop.py, CapturedStep)
+    seen = min(s2, WARMUP_STEPS + 1)
     eval_chunks = -(-20**3 // min(512, 8 * args.batch))
-    want = {"gate_loop_fwd": 2 * s2 + 2 * eval_chunks, "gate_loop_bwd": 2 * s2,
-            "gate_loop_reduce": 2 * s2}
+    want = {"gate_loop_fwd": 2 * seen + 2 * eval_chunks, "gate_loop_bwd": 2 * seen,
+            "gate_loop_reduce": 2 * seen}
     for k, v in want.items():
         if launches[k] != v:
             raise SystemExit(f"north_star: {k} launched {launches[k]} times, want {v}")
@@ -494,13 +519,20 @@ def loop_phases(dev, gen, card_peaks, smi, registers):
             raise SystemExit(f"north_star: plain version {k} ran {launches[k]} times")
     if s2 < 20 or result["backend"] != "LoopFusedCircuit":
         raise SystemExit(f"north_star: stage 2 ran {s2} steps on {result['backend']}")
-    # the stage-2 step rate on each engine, same weights, one process, in
-    # turns
+    # the default run (--backend auto) takes the loop engine at 16 qubits
+    dflt = ns.parse_args([])
+    _, model, _, backend = ns.build_model(dflt, dev)
+    ns.set_engine(model, dflt, backend)
+    if type(model.qblock).__name__ != "LoopFusedCircuit":
+        raise SystemExit(f"north_star: auto picked {type(model.qblock).__name__}")
+    del model
+    # the graphed stage-2 step rate on each engine, same weights, one
+    # process, in turns
     rates = {"loop": [], "block": []}
     profiles = {}
     for backend in ("loop", "block", "loop", "block"):
-        st = Stage2Stepper(args, backend, dev)
-        for _ in range(3):
+        st = NorthStarStepper(args, backend, dev)
+        for _ in range(WARMUP_STEPS + 2):
             st.step()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
@@ -511,7 +543,7 @@ def loop_phases(dev, gen, card_peaks, smi, registers):
         dt = (time.perf_counter() - t1) / RATE_STEPS
         rates[backend].append({"ms_per_step": 1e3 * dt, "points_per_sec": args.batch / dt})
         if backend not in profiles:
-            profiles[backend] = bench.profile(st, steps=3, top=8)
+            profiles[backend] = bench.profile(st, 1e3 * dt, steps=3, top=8)
         del st
         torch.cuda.empty_cache()
     emit({"phase": "north_star", "result": result, "wall_s": wall,
@@ -640,6 +672,7 @@ def unrolled_phases(dev, gen, card_peaks, smi):
     from qcpinn_tpu_torch.ops import statevector as tsv
     from qcpinn_tpu_torch.ops.block_fused import BlockFusedCircuit
     from qcpinn_tpu_torch.ops.circuit import DVCircuit
+    from qcpinn_tpu_torch.train.loop import WARMUP_STEPS
 
     # -- 11. unrolled_shapes ---------------------------------------------------
     shape_errs = {}
@@ -742,7 +775,7 @@ def unrolled_phases(dev, gen, card_peaks, smi):
         raise SystemExit(f"auto picked {type(trainer.model._fused).__name__} at 8q")
     launches, row = run_train(trainer, sk, SV_NAMES)
     emit({"phase": "train_8q", **row, "card": smi,
-          "profile": bench.profile(trainer, steps=3, top=8)})
+          "profile": bench.profile(trainer, row["ms_per_step"], steps=3, top=8)})
     del trainer
     torch.cuda.empty_cache()
 
@@ -762,9 +795,9 @@ def unrolled_phases(dev, gen, card_peaks, smi):
             "plain", "FusedCircuit", args.total_steps):
         raise SystemExit(f"north_star_plain: {result}")
     eval_chunks = -(-20**3 // min(512, 8 * args.batch))
-    steps = result["steps"]
-    want = {"unrolled_fwd": 2 * steps + 2 * eval_chunks, "unrolled_bwd": 2 * steps,
-            "unrolled_reduce": 2 * steps}
+    seen = min(result["steps"], WARMUP_STEPS + 1)  # warm-ups and the capture
+    want = {"unrolled_fwd": 2 * seen + 2 * eval_chunks, "unrolled_bwd": 2 * seen,
+            "unrolled_reduce": 2 * seen}
     for k, v in want.items():
         if ns_launches[k] != v:
             raise SystemExit(f"north_star_plain: {k} launched {ns_launches[k]}, want {v}")
@@ -826,39 +859,133 @@ def step_parity(bench, n_qubits, backend):
 
 
 def run_train(trainer, lib, names):
-    """STEPS bench train steps after 3 warm-up steps, with ``lib``'s launch
-    counters set to 0 just before: every loss finite, each kernel in
-    ``names`` launched exactly twice a step, no plain version called.
-    Returns (the counters, the phase's numbers)."""
+    """The bench train steps of a fresh ``trainer``, with ``lib``'s launch
+    counters set to 0 just before: WARMUP_STEPS + 2 steps (the eager
+    warm-ups, the capture and a replay), then STEPS timed replays. Every
+    loss finite, each kernel in ``names`` launched exactly twice in each
+    step the counters see (the warm-ups and the captured step; the graph's
+    replays launch it without Python), no plain version called. Returns
+    (the counters, the phase's numbers)."""
     import torch
 
-    for _ in range(3):
-        trainer.step()
-    torch.cuda.synchronize()
+    from qcpinn_tpu_torch.train.loop import WARMUP_STEPS
+
+    graph = trainer.graph
     lib.reset_launches()
+    losses = [trainer.step() for _ in range(WARMUP_STEPS + 2)]
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    losses = [trainer.step() for _ in range(STEPS)]
+    losses += [trainer.step() for _ in range(STEPS)]
     losses = torch.stack(losses).tolist()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(lib.LAUNCHES)
+    seen = graph.eager_steps + graph.captured
     if not all(math.isfinite(x) for x in losses):
         raise SystemExit(f"non-finite loss: {losses}")
+    if graph.captured != 1:
+        raise SystemExit("the train steps captured no step")
     for k in names:
-        if launches[k] != 2 * STEPS:
-            raise SystemExit(f"{k}: {launches[k]} launches in {STEPS} steps")
+        if launches[k] != 2 * seen:
+            raise SystemExit(f"{k}: {launches[k]} launches in {seen} steps the counters see")
         if launches[f"{k}_ref"] != 0:
             raise SystemExit(f"plain version {k}_ref ran {launches[k + '_ref']} times")
     return launches, {
-        "steps": STEPS, "batch": trainer.batch,
+        "steps": len(losses), "timed_steps": STEPS, "batch": trainer.batch,
+        "counted_steps": seen, "replays": graph.replays,
         "points_per_sec": trainer.batch * STEPS / dt, "ms_per_step": 1e3 * dt / STEPS,
         "loss_first": losses[0], "loss_last": losses[-1], "launches": launches}
 
 
+GRAPH_KINDS = ("bench_12q", "bench_8q", "north_star_stage1", "north_star_stage2")
+# the graph's first WARMUP_STEPS steps are eager, then 10 replays
+GRAPH_PARITY_STEPS = 13
+GRAPH_TIME_STEPS = 10
+
+
+def take_steps(st, n):
+    """``n`` steps of a bench Trainer (one ``step()`` each) or of a
+    NorthStarStepper (one ``run_steps`` call of n steps, as the run takes
+    a chunk); the loss of each."""
+    import torch
+
+    if isinstance(st, NorthStarStepper):
+        return st.steps(n)
+    return torch.stack([st.step() for _ in range(n)])
+
+
+def graph_phase(dev, smi):
+    """Phase ``graph``: each step the entry points capture in a CUDA graph
+    against its eager plain version, from the same seed (params, optimizer
+    state, sample stream): the 12q and 8q bench steps (``bench.Trainer``),
+    and the 16q north-star stage-1 and stage-2 steps set up by
+    ``north_star.make_stage``, GRAPH_PARITY_STEPS steps in one call of the
+    stage's ``run_steps`` against as many calls of its ``step_fn``. Every
+    step's loss within rtol 2e-5 and every parameter after the last step
+    within 2e-4 * max(|ref|, 1e-3). Then, in one process and in the order
+    eager, graph, graph, eager, the ms a step, and from a torch.profiler
+    window the launches a step, the device time and the idle share."""
+    import torch
+
+    from qcpinn_tpu_torch import bench, north_star as ns
+    from qcpinn_tpu_torch.train.loop import WARMUP_STEPS
+
+    args = ns.parse_args(NORTH_STAR_ARGS)
+
+    def make(kind, eager):
+        if kind == "bench_12q":
+            return bench.build(eager=eager)
+        if kind == "bench_8q":
+            return bench.build(n_qubits=SV_QUBITS, eager=eager)
+        stage = 1 if kind == "north_star_stage1" else 2
+        return NorthStarStepper(args, "loop", dev, stage=stage, eager=eager)
+
+    out = {}
+    for kind in GRAPH_KINDS:
+        ref, got = make(kind, True), make(kind, False)
+        l_ref = take_steps(ref, GRAPH_PARITY_STEPS).tolist()
+        l_got = take_steps(got, GRAPH_PARITY_STEPS).tolist()
+        for i, (a, b) in enumerate(zip(l_got, l_ref)):
+            if not math.isclose(a, b, rel_tol=2e-5):
+                raise SystemExit(f"graph {kind} step {i}: loss {a} against eager {b}")
+        worst = 0.0
+        want = dict(ref.model.named_parameters())
+        for k, p in got.model.named_parameters():
+            scale = max(want[k].abs().max().item(), 1e-3)
+            e = (p - want[k]).abs().max().item()
+            if not e <= 2e-4 * scale:
+                raise SystemExit(f"graph {kind} param {k}: {e} > 2e-4 * {scale}")
+            worst = max(worst, e / scale)
+        g = got.graph
+        row = {"loss_first": l_got[0], "loss_last": l_got[-1],
+               "max_loss_rel_err": max(abs(a - b) / abs(b) for a, b in zip(l_got, l_ref)),
+               "max_param_err_over_scale": worst, "eager_steps": g.eager_steps,
+               "captured": g.captured, "replays": g.replays, "timing": []}
+        del ref, got, g
+        torch.cuda.empty_cache()
+        for eager in (True, False, False, True):
+            st = make(kind, eager)
+            take_steps(st, WARMUP_STEPS + 2)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            float(take_steps(st, GRAPH_TIME_STEPS)[-1])
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) / GRAPH_TIME_STEPS
+            row["timing"].append({"mode": "eager" if eager else "graph",
+                                  **bench.profile(st, 1e3 * dt, steps=3, top=6)})
+            del st
+            torch.cuda.empty_cache()
+        out[kind] = row
+    emit({"phase": "graph", "parity_steps": GRAPH_PARITY_STEPS,
+          "tol": {"loss_rtol": 2e-5, "params": "2e-4*max(|ref|,1e-3)"},
+          "results": out, "card": smi})
+
+
 def stage2_rate(tree: str):
     """``--stage2-rate TREE``: the 16q north-star stage-2 step on the loop
-    engine with TREE's ``qcpinn_tpu_torch`` (driven by this file's
-    Stage2Stepper): 3 warm-up steps, 20 timed, a 3-step profile; one JSON
+    engine with TREE's ``qcpinn_tpu_torch`` (a tree with
+    ``north_star.make_stage``, driven by this file's NorthStarStepper, the
+    step graphed): 5 warm-up steps, 20 timed, a 3-step profile; one JSON
     line. To compare two trees, run it once per tree in one call, in turns
     (A, B, B, A)."""
     import torch
@@ -871,19 +998,16 @@ def stage2_rate(tree: str):
 
     dev = torch.device("cuda")
     args = ns.parse_args(NORTH_STAR_ARGS)
-    st = Stage2Stepper(args, "loop", dev)
-    for _ in range(3):
-        st.step()
+    st = NorthStarStepper(args, "loop", dev)
+    st.steps(5)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(20):
-        loss = st.step()
-    float(loss)
+    float(st.steps(20)[-1])
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / 20
-    prof = bench.profile(st, steps=3, top=4)
+    prof = bench.profile(st, 1e3 * dt, steps=3, top=4)
     emit({"tree": tree, "package": os.path.dirname(qcpinn_tpu_torch.__file__),
-          "ms_per_step": 1e3 * dt, "points_per_sec": args.batch / dt, **prof,
+          "points_per_sec": args.batch / dt, **prof,
           "card": nvidia_smi_line()})
 
 
@@ -991,6 +1115,17 @@ def main():
                              (12, 1, 7, 37), (12, 1, 5, 37), (10, 1, 7, 37)):
         eng = bk.BlockKernelCircuit(DVCircuit(n, layers, "cross_mesh", seed=42),
                                     hi_bits=hb)
+        tag = f"n{n}_hb{eng.plan.hb}_layers{layers}_B{b}"
+        if min(eng.plan.hb, eng.plan.lb) < bk.MIN_BLOCK_BITS:
+            # a block narrower than the backward's tensor-core tiles: the
+            # wrappers refuse it before any launch
+            try:
+                bk.check_plan(eng.plan)
+            except ValueError as e:
+                shape_errs[tag] = {"refused": str(e)}
+                continue
+            raise SystemExit(f"{tag}: check_plan accepted a {eng.plan.hb}/"
+                             f"{eng.plan.lb} split")
         p = 0.3 * torch.randn(eng.circuit.num_params, generator=gen, device=dev)
         with torch.no_grad():
             m, ph = eng.kernel_inputs(p)
@@ -1002,17 +1137,22 @@ def main():
         got = bk.block_chain_fwd(xr, xi, m, ph, eng.plan)
         want = bk.block_chain_fwd_ref(xr, xi, m, ph, eng.plan)
         e_fwd = max((a - r).abs().max().item() for a, r in zip(got, want))
-        got = bk.block_chain_bwd(*got, gr.contiguous(), gi.contiguous(), mct, ph, eng.plan)
+        bwd = bk.block_chain_bwd(*got, gr.contiguous(), gi.contiguous(), mct, ph, eng.plan)
+        again = bk.block_chain_bwd(*got, gr.contiguous(), gi.contiguous(), mct, ph,
+                                   eng.plan)
         want = bk.block_chain_bwd_ref(*want, gr, gi, mct, ph, eng.plan)
         e_bwd = max((a - r).abs().max().item() / r.abs().max().item()
-                    for a, r in zip(got, want))
-        tag = f"n{n}_hb{eng.plan.hb}_layers{layers}_B{b}"
+                    for a, r in zip(bwd, want))
         if not (e_fwd <= FWD_TOL and e_bwd <= BWD_RTOL):
             raise SystemExit(f"{tag}: fwd {e_fwd} bwd {e_bwd}")
-        shape_errs[tag] = {"fwd_abs": e_fwd, "bwd_rel": e_bwd}
+        if not all(torch.equal(a, c) for a, c in zip(bwd, again)):
+            raise SystemExit(f"{tag}: block_chain_bwd is not deterministic")
+        shape_errs[tag] = {"fwd_abs": e_fwd, "bwd_rel": e_bwd,
+                           "bwd_tile_buffers_smem": bk.bwd_config(eng.plan)}
     emit({"phase": "kernel_shapes", "results": shape_errs})
 
     # -- 4. kernels vs plain versions at the main path's shapes ------------
+    registers = ptxas_registers(built["block_chain"][2])
     circ = DVCircuit(N_QUBITS, 1, "cross_mesh", seed=42)
     eng = bk.BlockKernelCircuit(circ)
     plan = eng.plan
@@ -1095,12 +1235,18 @@ def main():
         red_scale = red_ref.abs().max().item()
         if not red_err <= RED_RTOL * red_scale:
             raise SystemExit(f"block_chain_reduce: err {red_err} vs {red_scale}")
-        if not torch.equal(gxr, got[0]):
+        if not (torch.equal(gxr, got[0]) and torch.equal(gxi, got[1])
+                and torch.equal(red, torch.cat([got[2], got[3]]))):
             raise SystemExit("block_chain_bwd is not deterministic")
         slab = partials.shape[1]
-        bb, bby = bound(3 * b * mat_flops + 20 * b * h * l * plan.n_diags,
-                        6 * state_bytes + mats_bytes + ph_bytes + 4 * slab,
-                        card_peaks)
+        # three complex products a mat step: the inputs hold no forward
+        # state, so each step's input is recovered (one product) before dM
+        # and the pullback (two more); K2 runs them on tensor cores in
+        # 3xTF32, three TF32 passes per f32 product
+        bwd_flops = 3 * b * mat_flops + 20 * b * h * l * plan.n_diags
+        bwd_bytes = 6 * state_bytes + mats_bytes + ph_bytes + 4 * slab
+        bb, bby = bound(bwd_flops, bwd_bytes, card_peaks, flop_rate=card_peaks[2] / 3)
+        tile, bufs, bwd_smem = bk.bwd_config(plan)
         xg = xc.clone().requires_grad_(True)
         mg = [m.clone().requires_grad_(True) for m in mats_c]
         pg = [p.clone().requires_grad_(True) for p in ph_c]
@@ -1121,7 +1267,14 @@ def main():
                 ryr, ryi, gr, gi, mct, p, plan)),
             "library_ms": time_ms(lib_bwd),
             "library": "autograd backward alone of the complex einsum chain",
-            "bound_ms": bb, "bound_by": bby, "grid": partials.shape[0],
+            "bound_ms": bb, "bound_by": bby,
+            "bound_rate": "a third of the TF32 tensor-core peak (3xTF32)",
+            # the same work on the FP32 SIMT units, as the kernel before
+            # the tensor cores ran it
+            "bound_fp32_ms": bound(bwd_flops, bwd_bytes, card_peaks)[0],
+            "grid": partials.shape[0], "samples_per_tile": tile,
+            "mct_buffers": bufs, "smem_per_cta": bwd_smem,
+            "registers": registers.get("block_chain_bwd_kernel"),
         }
         g = partials.shape[0]
         rb, rby = bound(g * slab, 4 * (g + 1) * slab, card_peaks)
@@ -1144,9 +1297,14 @@ def main():
         raise SystemExit(f"auto picked {type(trainer.model._fused).__name__}")
     launches, row = run_train(trainer, bk, ("block_chain_fwd", "block_chain_bwd",
                                             "block_chain_reduce"))
-    emit({"phase": "train", **row, "card": smi})
+    emit({"phase": "train", **row, "card": smi,
+          "profile": bench.profile(trainer, row["ms_per_step"], steps=3, top=8)})
 
     del trainer
+    torch.cuda.empty_cache()
+
+    # -- 6b. graph: every captured step against its eager version ----------
+    graph_phase(dev, smi)
     torch.cuda.empty_cache()
 
     # -- 7-10. the 16q north-star path through the gate-loop kernels ---------
@@ -1174,6 +1332,9 @@ def main():
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "batch": main_b,
+            **{key: r[key] for key in ("bound_rate", "bound_fp32_ms", "smem_per_cta",
+                                       "registers")
+               if key in r},
             "by_batch": {str(bb): v for bb, v in by_b.items()},
         })
     kernels += loop_results + unrolled_results

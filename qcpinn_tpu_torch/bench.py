@@ -22,7 +22,9 @@ prints one JSON line: metric, value (points/sec over the whole window:
 all the steps over all the time), unit, the card's name
 and power limit, and the engine. ``--backend`` picks another engine for an
 A/B on the same card; ``--profile`` adds a line with the device time per
-step by kernel (torch.profiler). The loop is plain eager PyTorch.
+step by kernel (torch.profiler). On the card the step is captured in a CUDA
+graph and replayed (``train/loop.py``'s ``CapturedStep``); the eager step
+is its plain version (``Trainer(eager=True)``, and the CPU).
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from .config import QCPINNConfig
 from .data import diffusion as dd
 from .models.dv_fourier import DVFourierSolver
 from .physics.streams import dv_diffusion_residual_streams
+from .train.loop import CapturedStep
 from .train.optim import adam, clip_by_global_norm
 
 
@@ -68,14 +71,20 @@ def bench_loss(model, Xr, yr, Xb, yb, Xi, yi) -> torch.Tensor:
 
 
 class Trainer:
-    """The bench train step: samplers, model, clip + Adam."""
+    """The bench train step: samplers, model, clip + Adam. On the card the
+    step runs as a captured CUDA graph unless ``eager``; Adam keeps its step
+    count on the card either way, so both run the same arithmetic."""
 
-    def __init__(self, model: DVFourierSolver, batch: int, lr: float, seed: int):
+    def __init__(self, model: DVFourierSolver, batch: int, lr: float, seed: int,
+                 eager: bool = False):
         self.model = model
         self.batch = batch
         self.third = max(batch // 3, 1)
-        self.opt = adam(model.parameters(), lr)
+        on_card = model.device.type == "cuda"
+        self.opt = adam(model.parameters(), lr, capturable=on_card)
         self.gen = torch.Generator(device=model.device).manual_seed(seed + 1)
+        self.graph = None if eager or not on_card else CapturedStep(
+            self.eager_step, self.gen)
         box = dd._box
         self.res_s = dd.Sampler(box([[0, 0, 0], [1, 1, 1]]), dd.r_true)
         self.bc_s = dd.Sampler(box([[0, 0, 0], [1, 0, 1]]), dd.u)
@@ -87,14 +96,22 @@ class Trainer:
         Xi, yi = self.ic_s.sample(self.gen, self.third)
         return Xr, yr, Xb, yb, Xi, yi
 
-    def step(self, points=None) -> torch.Tensor:
-        """One train step; returns the loss (no host synchronisation)."""
-        loss = bench_loss(self.model, *(points or self.sample()))
+    def eager_step(self) -> torch.Tensor:
+        """One train step, eagerly; returns the loss (no host
+        synchronisation). The parameters, the gradients and Adam's state are
+        updated in place, so the graph captures this step as it is."""
+        loss = bench_loss(self.model, *self.sample())
         self.opt.zero_grad(set_to_none=True)
         loss.backward()
         clip_by_global_norm(self.model.parameters(), 1.0)
         self.opt.step()
         return loss.detach()
+
+    def step(self) -> torch.Tensor:
+        """One train step (a graph replay on the card); returns the loss."""
+        if self.graph is None:
+            return self.eager_step()
+        return self.graph().clone()
 
 
 def build(
@@ -105,9 +122,10 @@ def build(
     seed: int = 42,
     lr: float = 5e-3,
     device=None,
+    eager: bool = False,
 ) -> Trainer:
     """The bench configuration on ``device`` (default: the card; raises
-    without CUDA)."""
+    without CUDA). ``eager`` runs the plain eager step on the card."""
     device = resolve_device(device)
     cfg = QCPINNConfig(
         num_qubits=n_qubits,
@@ -120,7 +138,7 @@ def build(
     )
     model = DVFourierSolver(cfg, device=device)
     model.use_fused(backend)
-    return Trainer(model, batch, lr, seed)
+    return Trainer(model, batch, lr, seed, eager=eager)
 
 
 def run(trainer: Trainer, steps: int = 30, trials: int = 3) -> float:
@@ -138,19 +156,20 @@ def run(trainer: Trainer, steps: int = 30, trials: int = 3) -> float:
     return (time.perf_counter() - t0) / (trials * steps)
 
 
-def profile(trainer: Trainer, steps: int = 5, top: int = 12) -> dict:
+def profile(trainer, ms_per_step: float, steps: int = 5, top: int = 12) -> dict:
     """Device time per step by kernel name (torch.profiler over ``steps``
-    steps), beside the wall time of the same steps."""
+    calls of ``trainer.step()``; it sees the kernels inside a graph's
+    replay) and the device's idle share of ``ms_per_step``, the step's time
+    measured without the profiler (whose own overhead stretches the
+    profiled wall)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as prof
 
     torch.cuda.synchronize()
     with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-        t0 = time.perf_counter()
         for _ in range(steps):
             trainer.step()
         torch.cuda.synchronize()
-        wall = 1e3 * (time.perf_counter() - t0) / steps
     by_name: dict = {}
     launches = 0
     for e in p.events():
@@ -161,9 +180,9 @@ def profile(trainer: Trainer, steps: int = 5, top: int = 12) -> dict:
                   key=lambda r: -r[1])
     device = sum(ms for _, ms in rows)
     return {
-        "wall_ms_per_step": wall,
+        "ms_per_step": ms_per_step,
         "device_ms_per_step": device,
-        "device_idle_share": 1.0 - device / wall,
+        "device_idle_share": 1.0 - device / ms_per_step,
         "device_launches_per_step": launches / steps,
         "top_device_ms_per_step": rows[:top],
     }
@@ -193,7 +212,8 @@ def main():
         "backend": type(trainer.model.qblock).__name__,
     }))
     if args.profile:
-        print(json.dumps({"profile": profile(trainer), "card": info["nvidia_smi"]}))
+        print(json.dumps({"profile": profile(trainer, 1e3 * dt),
+                          "card": info["nvidia_smi"]}))
 
 
 if __name__ == "__main__":

@@ -11,7 +11,7 @@ here; see :func:`u_xx`.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -77,6 +77,19 @@ def r_true(txy, D: float = DEFAULT_D, v_x: float = DEFAULT_V_X, v_y: float = DEF
     )
 
 
+def _rows_on(sampler, device: torch.device, *arrays) -> Tuple[torch.Tensor, ...]:
+    """``arrays`` as [1, dim] float32 tensors on ``device``, built once per
+    sampler and device: a draw then copies nothing from the host, so it can
+    be captured in a CUDA graph. The cache lives beside the dataclass
+    fields (a frozen dataclass still has a ``__dict__``)."""
+    cache = sampler.__dict__.setdefault("_on_device", {})
+    if device not in cache:
+        cache[device] = tuple(
+            torch.as_tensor(np.asarray(a, dtype=np.float32).reshape(1, -1),
+                            device=device) for a in arrays)
+    return cache[device]
+
+
 @dataclasses.dataclass(frozen=True)
 class Sampler:
     """Uniform sampler over a hyper-rectangle with a target function.
@@ -93,8 +106,7 @@ class Sampler:
     def sample(self, generator: torch.Generator, n: int):
         """Draws on the generator's device."""
         dev = generator.device
-        lo = torch.as_tensor(self.coords[0:1, :], dtype=torch.float32, device=dev)
-        hi = torch.as_tensor(self.coords[1:2, :], dtype=torch.float32, device=dev)
+        lo, hi = _rows_on(self, dev, self.coords[0], self.coords[1])
         rand = torch.rand((n, self.dim), generator=generator, device=dev)
         x = lo + (hi - lo) * rand
         return x, self.func(x)
@@ -124,12 +136,10 @@ class MixtureSampler:
         """Draws on the generator's device: the uniform block, then the
         Gaussian block."""
         dev = generator.device
-        lo = torch.as_tensor(self.coords[0:1, :], dtype=torch.float32, device=dev)
-        hi = torch.as_tensor(self.coords[1:2, :], dtype=torch.float32, device=dev)
+        lo, hi, mu, sd = _rows_on(self, dev, self.coords[0], self.coords[1],
+                                  self.focus, self.sigma)
         x_uni = lo + (hi - lo) * torch.rand((n, self.dim), generator=generator,
                                             device=dev)
-        mu = torch.as_tensor(self.focus[None, :], dtype=torch.float32, device=dev)
-        sd = torch.as_tensor(self.sigma[None, :], dtype=torch.float32, device=dev)
         noise = torch.randn((n, self.dim), generator=generator, device=dev)
         x_foc = torch.minimum(torch.maximum(mu + sd * noise, lo), hi)
         rows = torch.arange(n, dtype=torch.float32, device=dev)[:, None]

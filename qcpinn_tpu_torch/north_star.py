@@ -16,8 +16,10 @@ until its wall-clock budget or its step horizon.
     python -m qcpinn_tpu_torch.north_star [--backend loop] [--minutes 4.5]
 
 ``--backend`` picks the evolution engine (ops/backends.py; ``auto`` picks
-the plain ``block`` engine at 16 qubits, ``loop`` the CUDA gate-table
-kernels, ``xla`` the gate-by-gate circuit). Prints one JSON line with the
+``loop``, the CUDA gate-table kernels, at 16 qubits on the card, ``block``
+the plain block engine, ``xla`` the gate-by-gate circuit). On the card
+each stage's step is captured in a CUDA graph and replayed
+(``train/loop.py``); evaluation runs eagerly. Prints one JSON line with the
 JAX script's keys and the card's name and power limit. Unlike the JAX
 script, ``points_per_sec`` and the stage seconds count only the timed
 steps (the warm-up chunk of each stage is outside both), and numbers are
@@ -34,12 +36,13 @@ item 10).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import sys
 import time
 import zlib
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -130,8 +133,6 @@ def make_terms(args) -> dict:
         res_sampler = dd.Sampler(box([[0, 0, 0], [1, 1, 1]]), dd.r_true, "res")
     if args.supervised:
         if isinstance(res_sampler, dd.MixtureSampler):
-            import dataclasses
-
             sup = dataclasses.replace(res_sampler, func=dd.u)
         else:
             sup = dd.Sampler(box([[0, 0, 0], [1, 1, 1]]), dd.u, "sup")
@@ -218,34 +219,84 @@ def set_engine(model, args, backend: str) -> None:
         model.use_fused(backend)
 
 
-def run_phase(model, cfg, terms, lr, total_steps, budget_s, chunk, label,
-              residual_fn=None):
-    """One Adam phase: a warm-up chunk (kernel builds, allocator, cuBLAS
-    handles) outside the budget, then chunks until the wall-clock budget or
-    the step horizon. Returns (steps done, timed steps, timed seconds, the
-    loss of every step)."""
-    # a distinct sample stream per phase
-    gen = torch.Generator(device=model.device).manual_seed(zlib.crc32(label.encode()))
-    optimizer = topt.make_optimizer(lr, grad_clip=1.0, schedule="cosine",
-                                    epochs=total_steps)
+@dataclasses.dataclass
+class Stage:
+    """One Adam stage of the run (:func:`make_stage`): the model's trainable
+    tensors, the optimizer and plateau state, the stage's sample stream, and
+    ``make_train_step``'s two steps. ``run(n)`` takes n steps through
+    ``run_steps`` (on the card, one captured CUDA graph replayed a step) and
+    returns the metric trace; ``step()`` takes one eager step (the plain
+    version) and returns its metrics."""
+
+    label: str
+    horizon: int
+    params: list
+    opt_state: object
+    sched: object
+    gen: torch.Generator
+    step_fn: Callable
+    run_steps: Callable
+
+    def run(self, n: int) -> dict:
+        self.opt_state, self.sched, trace = self.run_steps(
+            self.params, self.opt_state, self.sched, self.gen, n)
+        return trace
+
+    def step(self) -> dict:
+        self.opt_state, self.sched, metrics = self.step_fn(
+            self.params, self.opt_state, self.sched, self.gen)
+        return metrics
+
+
+def make_stage(model, cfg, args, terms, label: str, backend: str = "block",
+               use_streams: bool = False, optimizer=None) -> Stage:
+    """Set ``model`` up for one stage and build its training state.
+    ``stage1``: the zeroed quantum block (the decoder sees z = 0, so the
+    circuit never runs and the z-columns of the first post layer get zero
+    gradient), ``args.lr``, horizon ``--stage1-steps``. ``stage2``: the
+    circuit on ``backend``, lr ``--lr2`` (default lr / 5); ``train`` (the
+    one stage): the circuit at ``args.lr``; both with horizon
+    ``--total-steps`` and the tangent-stream residual when ``use_streams``.
+    Each stage is clip + cosine Adam (or ``optimizer``) with a sample
+    stream of its own."""
+    residual_fn = None
+    if label == "stage1":
+        model._fused = ZeroQ(cfg.num_qubits)
+        lr, horizon = args.lr, args.stage1_steps
+    else:
+        set_engine(model, args, backend)
+        lr = args.lr if label == "train" else (
+            args.lr2 if args.lr2 is not None else args.lr / 5.0)
+        horizon = args.total_steps
+        if use_streams:
+            residual_fn = lambda X: dv_diffusion_residual_streams(model, X)  # noqa: E731
+    optimizer = optimizer or topt.make_optimizer(lr, grad_clip=1.0, schedule="cosine",
+                                                 epochs=horizon)
     params = [p for p in model.parameters() if p.requires_grad]
-    opt_state = optimizer.init(params)
-    sched = topt.plateau_init(model.device)
-    _, run_steps = make_train_step(
+    step_fn, run_steps = make_train_step(
         model, diffusion_operator_fwd, terms, optimizer, cfg,
         residual_fn=residual_fn, fuse_value_terms=True,
     )
-    opt_state, sched, trace = run_steps(params, opt_state, sched, gen, chunk)
-    losses = trace["loss"].tolist()
+    return Stage(label, horizon, params, optimizer.init(params),
+                 topt.plateau_init(model.device),
+                 torch.Generator(device=model.device).manual_seed(zlib.crc32(label.encode())),
+                 step_fn, run_steps)
+
+
+def run_phase(stage: Stage, budget_s, chunk):
+    """One stage: a warm-up chunk (kernel builds, allocator, cuBLAS handles,
+    the capture) outside the budget, then chunks until the wall-clock
+    budget or the stage's horizon. Returns (steps done, timed steps, timed
+    seconds, the loss of every step)."""
+    losses = stage.run(chunk)["loss"].tolist()
     done, timed = chunk, 0
     t0 = time.perf_counter()
-    while time.perf_counter() - t0 < budget_s and done < total_steps:
-        opt_state, sched, trace = run_steps(params, opt_state, sched, gen, chunk)
-        losses += trace["loss"].tolist()
+    while time.perf_counter() - t0 < budget_s and done < stage.horizon:
+        losses += stage.run(chunk)["loss"].tolist()
         done += chunk
         timed += chunk
         if (timed // chunk) % 5 == 0:
-            print(f"[{label}] step {done}: loss={losses[-1]:.3e} "
+            print(f"[{stage.label}] step {done}: loss={losses[-1]:.3e} "
                   f"elapsed={time.perf_counter() - t0:.0f}s", flush=True)
     return done, timed, time.perf_counter() - t0, losses
 
@@ -257,35 +308,25 @@ def run(args, device=None) -> dict:
     cfg, model, use_streams, backend = build_model(args, device)
     terms = make_terms(args)
     budget = args.minutes * 60.0
-    residual_fn = ((lambda X: dv_diffusion_residual_streams(model, X))
-                   if use_streams else None)
     stage_info = None
     solver = solver_name(args)
     if args.stage1_minutes > 0 and solver == "fourier" and not args.no_quantum:
-        # stage 1: the decoder sees z = 0, so the circuit never runs and the
-        # z-columns of the first post layer get zero gradient
-        model._fused = ZeroQ(cfg.num_qubits)
-        s1_budget = min(args.stage1_minutes * 60.0, budget)
-        d1, n1, t1, l1 = run_phase(model, cfg, terms, args.lr, args.stage1_steps,
-                                   s1_budget, max(args.chunk, 500), "stage1")
+        s1 = make_stage(model, cfg, args, terms, "stage1")
+        d1, n1, t1, l1 = run_phase(s1, min(args.stage1_minutes * 60.0, budget),
+                                   max(args.chunk, 500))
         # handoff: damp the decoder's quantum-feature columns so switching
         # the circuit on perturbs the converged fit smoothly
         with torch.no_grad():
             model.post[0].weight[:, : cfg.num_qubits] *= args.z_rescale
-        set_engine(model, args, backend)
-        lr2 = args.lr2 if args.lr2 is not None else args.lr / 5.0
-        d2, n2, t2, l2 = run_phase(model, cfg, terms, lr2, args.total_steps,
-                                   budget - t1, args.chunk, "stage2",
-                                   residual_fn=residual_fn)
+        s2 = make_stage(model, cfg, args, terms, "stage2", backend, use_streams)
+        d2, n2, t2, l2 = run_phase(s2, budget - t1, args.chunk)
         done, timed, train_time, losses = d1 + d2, n2, t1 + t2, l1 + l2
         stage_info = {"stage1_steps": d1, "stage1_seconds": t1,
                       "stage2_steps": d2, "stage2_timed_steps": n2,
                       "stage2_seconds": t2}
     else:
-        set_engine(model, args, backend)
-        done, timed, train_time, losses = run_phase(
-            model, cfg, terms, args.lr, args.total_steps, budget, args.chunk,
-            "train", residual_fn=residual_fn)
+        stage = make_stage(model, cfg, args, terms, "train", backend, use_streams)
+        done, timed, train_time, losses = run_phase(stage, budget, args.chunk)
 
     seconds = stage_info["stage2_seconds"] if stage_info else train_time
     if use_streams:  # at high qubit counts the residual eval rides streams too

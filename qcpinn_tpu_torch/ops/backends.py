@@ -15,10 +15,12 @@ qcpinn_tpu/ops/pallas_loop.py::make_fused_backend).
 
 ``auto`` is a stated rule, not a fallback: on CUDA it picks ``unrolled`` at
 7 <= n <= 9 (as the compiled JAX default does), ``block_kernel`` at
-10 <= n <= 12 when ``supports()`` holds, else ``block``; on the CPU it picks
-``block``. At n >= 10 this differs from the JAX default, which picks the
-plain XLA block engine: that choice was a TPU measurement and says nothing
-about the H100. Nothing here catches an error and carries on.
+10 <= n <= 12 when ``supports()`` holds, ``loop`` at 13 <= n <= 16 (the
+16-qubit step took 151 ms of card time against 234 ms on ``block``, whose
+block-chain kernels stop at 12 qubits), else ``block``; on the CPU it
+picks ``block``. At n >= 10 this differs from the JAX default, which picks
+the plain XLA block engine: that choice was a TPU measurement and says
+nothing about the H100. Nothing here catches an error and carries on.
 """
 
 from __future__ import annotations
@@ -46,6 +48,8 @@ def make_fused_backend(circuit: DVCircuit, backend: str = "auto", device=None):
             backend = "unrolled"
         elif on_card and 10 <= circuit.n <= MAX_QUBITS and supports(circuit):
             backend = "block_kernel"
+        elif on_card and MAX_QUBITS < circuit.n <= loop_kernel.MAX_QUBITS:
+            backend = "loop"
         else:
             backend = "block"
     if backend == "unrolled":

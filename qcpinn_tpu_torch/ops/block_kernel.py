@@ -10,16 +10,20 @@ launch (port of qcpinn_tpu/ops/block_pallas.py).
 - ``block_chain_bwd`` replaces ``block_pallas.py::_backward_kernel``. It
   sweeps the plan in reverse with O(1) state memory: the matrices arrive
   conj-transposed, and one contraction with them both recovers each step's
-  input and pulls the cotangent back. The matrix and phase cotangents are
-  batch sums: a persistent grid of G CTAs writes one partial slab per CTA,
-  and ``block_chain_reduce`` adds the slabs in a fixed order (no float
+  input and pulls the cotangent back. Its three complex products per mat
+  step run on the tensor cores in 3xTF32 (a TF32 high and low part of each
+  f32 operand, hi*hi + hi*lo + lo*hi in f32), on a tile of samples per
+  CTA (:func:`bwd_config`). The matrix and phase cotangents are batch
+  sums: each CTA sums its tile in registers, adds it into its own partial
+  slab once a tile (one CTA per SM, so the slabs stay in L2), and
+  ``block_chain_reduce`` adds the slabs in a fixed order (no float
   atomics, deterministic).
 
 Bound: at 12 qubits (H = L = K = 64) every mat step is a 64x64x64 complex
 product per sample, ~21 FMA per byte of state, so the kernels are bound by
-FP32 FMA throughput (no tensor cores: TF32 would break the f32 parity).
-The design keeps the state on chip for the whole chain and gives each
-thread a 4x4 complex register tile on bank-conflict-free padded rows.
+arithmetic. Both keep the state on chip for the whole chain; the forward
+gives each thread a 4x4 complex register tile on the FP32 units, on
+bank-conflict-free padded rows.
 
 The state keeps one ``[H, L]`` orientation throughout: the Pallas kernel's
 transposes exist because Mosaic contracts only the minor dim, and the GPU
@@ -51,8 +55,8 @@ from .block_fused import BlockFusedCircuit, Segment, _block_unitary
 from .circuit import DVCircuit
 
 MAX_QUBITS = 12  # one sample's state must fit in one CTA's shared memory
+MIN_BLOCK_BITS = 5  # the backward's tensor-core tiles are 32 rows deep
 MAX_STEPS = 128  # QC_MAX_STEPS in csrc/block_chain.cu
-SMEM_LIMIT = 227 * 1024  # opt-in dynamic shared memory per CTA on sm_90
 
 
 LAUNCHES = {
@@ -310,34 +314,34 @@ def _step_table(plan: KPlan) -> Tuple[np.ndarray, int]:
     return np.ascontiguousarray(rows, dtype=np.int32).reshape(-1, 3), off
 
 
-def smem_bytes(plan: KPlan, state_planes: int) -> int:
-    """Dynamic shared memory of one CTA (smem_bytes in csrc/block_chain.cu):
-    2 state planes forward, 4 backward, plus one [K, K + 1] re/im matrix."""
-    h, l = 1 << plan.hb, 1 << plan.lb
-    km = max(h, l)
-    return 4 * (state_planes * h * (l + 1) + 2 * km * (km + 1))
+def bwd_config(plan: KPlan) -> Tuple[int, int, int]:
+    """(samples per tile, Mct buffers, shared bytes) of one backward CTA
+    (bwd_config in csrc/block_chain.cu): a tile of 2 samples' state and
+    cotangent planes and a double-buffered [K, K] re/im matrix where both
+    blocks are at most 64 wide, else (a 128-wide block at 12 qubits) 1
+    sample and 1 buffer; either fits a CTA's shared memory."""
+    km = 1 << max(plan.hb, plan.lb)
+    tile = bufs = 2 if km <= 64 else 1
+    return tile, bufs, 4 * (4 * tile * (1 << plan.n) + 2 * bufs * km * km)
 
 
 def check_plan(plan: KPlan) -> None:
     """Raise unless the CUDA kernels can run ``plan``: one sample's state
-    in one CTA (n <= 12, so 256 threads hold 4x4 tiles of [H, L]), blocks
-    of >= 2 qubits (4-wide tiles), and the backward's shared memory within
-    the per-CTA limit (a lopsided split needs a [K, K] matrix too large)."""
+    in one CTA (n <= 12, so 256 threads hold 4x4 tiles of [H, L] forward and
+    8 warps its 32x16 tiles backward) and both blocks at least 32 wide (the
+    backward's tensor-core tiles; the forward takes the same plans, so an
+    engine that cannot train is refused when it is built)."""
     if plan.n > MAX_QUBITS:
         raise ValueError(
             f"block_chain kernels take n <= {MAX_QUBITS} (one sample per "
             f"CTA in shared memory); got n = {plan.n}"
         )
-    if min(plan.hb, plan.lb) < 2:
-        raise ValueError("block_chain kernels need both blocks >= 2 qubits")
+    if min(plan.hb, plan.lb) < MIN_BLOCK_BITS:
+        raise ValueError(
+            f"block_chain kernels need both blocks >= {MIN_BLOCK_BITS} qubits; "
+            f"got {plan.hb}/{plan.lb}")
     if len(plan.steps) > MAX_STEPS:
         raise ValueError(f"plan has {len(plan.steps)} steps > {MAX_STEPS}")
-    need = smem_bytes(plan, 4)
-    if need > SMEM_LIMIT:
-        raise ValueError(
-            f"block split {plan.hb}/{plan.lb} needs {need} B of shared "
-            f"memory per CTA > {SMEM_LIMIT}"
-        )
 
 
 def _check_cuda(plan: KPlan, states, m: torch.Tensor, p: torch.Tensor) -> None:
@@ -389,10 +393,10 @@ def block_chain_fwd(xr, xi, m, p, plan: KPlan):
 
 
 def grid_size(device: torch.device, b: int) -> int:
-    """Persistent backward grid: two CTAs per SM (the shared-memory
-    occupancy at 12 qubits), never more than the batch."""
+    """Persistent backward grid: one CTA per SM (its shared memory holds a
+    tile of samples), never more than the batch."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(b, 2 * sms))
+    return max(1, min(b, sms))
 
 
 def block_chain_reduce(partials: torch.Tensor) -> torch.Tensor:

@@ -52,30 +52,49 @@ class DiagRun:
     quad: Tuple[Tuple[int, int, int], ...]
     const_pairs: Tuple[Tuple[int, int], ...]
 
+    def constants(self, device) -> dict:
+        """Everything :meth:`phases` needs besides the parameters, on
+        ``device``, built once per device: the bit planes, the linear and
+        global-phase coefficients, the bilinear pair planes with their
+        parameter indices, the static CZ phases and the run's parameter
+        indices. A call then copies nothing from the host, so it can be
+        captured in a CUDA graph. The cache lives beside the dataclass
+        fields (a frozen dataclass still has a ``__dict__``)."""
+        device = torch.device(device)
+        cache = self.__dict__.setdefault("_on_device", {})
+        if device not in cache:
+            bits_np = bit_matrix(self.n)
+
+            def dev(a, dtype=torch.float32):
+                return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+            c = {"bits_t": dev(bits_np.T), "w1": dev(self.w1), "c1": dev(self.c1),
+                 "pidx": dev(self.pidx, torch.long)}
+            if self.quad:
+                c["pair"] = dev(np.stack(
+                    [bits_np[:, q] * bits_np[:, t] for q, t, _ in self.quad]))
+                c["ks"] = dev([q[2] for q in self.quad], torch.long)
+            if self.const_pairs:
+                cvec = np.zeros(1 << self.n, dtype=np.float32)
+                for a, t in self.const_pairs:
+                    cvec += np.pi * bits_np[:, a] * bits_np[:, t]
+                c["cvec"] = dev(cvec)
+            cache[device] = c
+        return cache[device]
+
     def phases(self, params: torch.Tensor) -> torch.Tensor:
         """params: [P_layer] or [B, P_layer] -> phases [2^n] / [B, 2^n]."""
-        dev = params.device
-        bits_np = bit_matrix(self.n)
-        bits = torch.as_tensor(bits_np, device=dev)
-        theta = params[..., list(self.pidx)]
+        c = self.constants(params.device)
+        theta = params[..., c["pidx"]]
         # linear: Bits @ (W1^T theta), plus the scalar global-phase part
-        lin_w = theta @ torch.as_tensor(self.w1, device=dev)  # [..., n]
-        phi = lin_w @ bits.T  # [..., 2^n]
-        phi = phi + torch.sum(
-            theta * torch.as_tensor(self.c1, device=dev), dim=-1, keepdim=True
-        )
+        lin_w = theta @ c["w1"]  # [..., n]
+        phi = lin_w @ c["bits_t"]  # [..., 2^n]
+        phi = phi + torch.sum(theta * c["c1"], dim=-1, keepdim=True)
         if self.quad:
             # bilinear: sum_k theta_k b_c(k) b_t(k), as theta[ks] @ [K, 2^n]
-            pair = np.stack(
-                [bits_np[:, c] * bits_np[:, t] for c, t, _ in self.quad]
-            )
-            ks = [q[2] for q in self.quad]
-            phi = phi + theta[..., ks] @ torch.as_tensor(pair, device=dev)
+            phi = phi + theta[..., c["ks"]] @ c["pair"]
         if self.const_pairs:
-            cvec = np.zeros(1 << self.n, dtype=np.float32)
-            for a, t in self.const_pairs:
-                cvec += np.pi * bits_np[:, a] * bits_np[:, t]
-            phi = phi + torch.as_tensor(cvec, device=dev)
+            phi = phi + c["cvec"]
         return phi
 
     def apply(self, state: torch.Tensor, params: torch.Tensor) -> torch.Tensor:

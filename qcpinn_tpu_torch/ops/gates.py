@@ -34,6 +34,20 @@ SWAP = np.array(
 )
 
 
+_HOST_CONSTS: dict = {}
+
+
+def host_const(a: np.ndarray, device, dtype=CDTYPE) -> torch.Tensor:
+    """A fixed numpy array (a gate matrix, a mask) as a tensor on
+    ``device``, built once per content and device: a call then copies
+    nothing from the host, so it can be captured in a CUDA graph."""
+    a = np.ascontiguousarray(a)
+    key = (a.shape, a.dtype.str, a.tobytes(), dtype, torch.device(device))
+    if key not in _HOST_CONSTS:
+        _HOST_CONSTS[key] = torch.as_tensor(a, dtype=dtype, device=device)
+    return _HOST_CONSTS[key]
+
+
 def _half(theta) -> torch.Tensor:
     return torch.as_tensor(theta, dtype=RDTYPE) / 2.0
 
@@ -88,7 +102,7 @@ def controlled(gate: torch.Tensor) -> torch.Tensor:
     """Lift a (batched) 1-qubit gate to a controlled 2-qubit gate,
     ``diag(I, gate)`` in (control, target) order."""
     batch_shape = gate.shape[:-2]
-    eye = torch.as_tensor(_I2, device=gate.device).expand(batch_shape + (2, 2))
+    eye = host_const(_I2, gate.device).expand(batch_shape + (2, 2))
     zeros = torch.zeros(batch_shape + (2, 2), dtype=CDTYPE, device=gate.device)
     top = torch.cat([eye, zeros], dim=-1)
     bot = torch.cat([zeros, gate.to(CDTYPE)], dim=-1)

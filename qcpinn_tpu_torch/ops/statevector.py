@@ -15,12 +15,15 @@ import numpy as np
 import torch
 
 from . import gates
+from .gates import host_const
 
 CDTYPE = torch.complex64
 RDTYPE = torch.float32
 
 
 def _as_gate(m, like: torch.Tensor) -> torch.Tensor:
+    if isinstance(m, np.ndarray):
+        return host_const(m, like.device)
     return torch.as_tensor(m, dtype=CDTYPE, device=like.device)
 
 
@@ -95,10 +98,8 @@ def apply_ctrl_1q(
             shape[0] = b
         return vec.reshape(shape)
 
-    sel = along(
-        torch.tensor([0.0, 1.0], dtype=state.dtype, device=state.device),
-        ctrl_axis, False,
-    )
+    sel = along(host_const(np.float32([0.0, 1.0]), state.device, state.dtype),
+                ctrl_axis, False)
     swapped = torch.flip(s, dims=(tgt_axis,))
     if m.ndim == 2:
         diag = along(torch.stack([m[0, 0], m[1, 1]]), tgt_axis, False)
@@ -118,7 +119,9 @@ def _z_sign_matrix(n: int) -> np.ndarray:
     return (1.0 - 2.0 * bits).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=32)
 def z_sign(n: int, device) -> torch.Tensor:
+    """The ``[2^n, n]`` sign matrix on ``device``, built once per device."""
     return torch.as_tensor(_z_sign_matrix(n), device=device)
 
 
@@ -140,18 +143,26 @@ def encode_angle_product(x: torch.Tensor, n: int) -> torch.Tensor:
     """AngleEmbedding built directly as a product state: amplitude s is
     ``(-i)^popcount(s) * prod_w (cos or sin)(x_w / 2)``. Equals
     ``encode_angle(zero_state(B, n), n, x)``."""
-    from .diag_fusion import bit_matrix
-
     c = torch.cos(x / 2.0).to(RDTYPE)
     s = torch.sin(x / 2.0).to(RDTYPE)
-    bits = bit_matrix(n)  # [2^n, n] static
+    masks, phase = _product_consts(n, x.device)
     mag = torch.ones((x.shape[0], 1 << n), dtype=RDTYPE, device=x.device)
     for w in range(n):  # wire 0 is the most significant bit
-        mask = torch.as_tensor(bits[:, w][None, :] == 1.0, device=x.device)
-        mag = mag * torch.where(mask, s[:, w : w + 1], c[:, w : w + 1])
+        mag = mag * torch.where(masks[w][None, :], s[:, w : w + 1], c[:, w : w + 1])
+    return mag.to(CDTYPE) * phase[None, :]
+
+
+@functools.lru_cache(maxsize=32)
+def _product_consts(n: int, device):
+    """(bit masks [n, 2^n] bool, (-i)^popcount [2^n]) on ``device``, built
+    once per device."""
+    from .diag_fusion import bit_matrix
+
+    bits = bit_matrix(n)  # [2^n, n] static
     pop = bits.sum(axis=1).astype(np.int64) % 4
-    phase = np.array([1, -1j, -1, 1j], dtype=np.complex64)[pop]  # (-i)^popcount
-    return mag.to(CDTYPE) * torch.as_tensor(phase, device=x.device)[None, :]
+    phase = np.array([1, -1j, -1, 1j], dtype=np.complex64)[pop]
+    return (torch.as_tensor(bits.T == 1.0, device=device),
+            torch.as_tensor(phase, device=device))
 
 
 def encode_amplitude(x: torch.Tensor, n: int, eps: float = 1e-12) -> torch.Tensor:

@@ -3,9 +3,16 @@
 
 One step: sample every term's points -> forward -> PDE residual (the
 tangent-stream ``residual_fn`` or a generic ``operator``) -> weighted MSE
--> grad -> clip + Adam (``train/optim.py``) -> plateau scheduler. The JAX
-``lax.scan`` over a chunk of steps becomes a plain eager loop; the host
-waits on the device only when the caller reads a metric.
+-> grad -> clip + Adam (``train/optim.py``) -> plateau scheduler.
+
+The JAX package compiles the step and scans a chunk of steps in one
+dispatch (``jax.jit`` of ``lax.scan``). On the card the port captures one
+step in a CUDA graph (:class:`CapturedStep`) and replays it once a step:
+the host then launches one graph where the eager step launched thousands
+of kernels. The eager ``step_fn`` stays as the plain version: the CPU
+runs it, and on the card a caller that compares against it calls it
+directly. The host waits on the device only when the caller reads a
+metric.
 
 Not ported yet: SPSA gradient modes, shot-sampled value terms and the
 adaptive loss balancers (ROADMAP queue 1 item 9), and the device-mesh data
@@ -21,6 +28,8 @@ import torch
 
 from . import losses as L
 from . import optim
+
+WARMUP_STEPS = 3  # eager steps before a capture (CapturedStep)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,7 +67,8 @@ def make_train_step(
 
     ``step_fn(params, opt_state, sched, generator) -> (opt_state, sched,
     metrics)`` updates ``params`` (the model's trainable tensors) in place;
-    ``run_steps(..., n_steps)`` runs that many steps and returns the metric
+    ``run_steps(..., n_steps)`` (a :class:`StepRunner`) runs that many
+    steps of ``step_fn`` bound to static tensors and returns the metric
     trace stacked over steps. Nothing synchronises with the host."""
     if balancer not in ("none", "ema", "uncertainty"):
         raise ValueError(
@@ -134,12 +144,122 @@ def make_train_step(
         metrics["lr_scale"] = sched.scale
         return opt_state, sched, metrics
 
-    def run_steps(params, opt_state, sched, generator, n_steps: int):
-        trace = []
-        for _ in range(n_steps):
-            opt_state, sched, metrics = step_fn(params, opt_state, sched, generator)
-            trace.append(metrics)
-        stacked = {k: torch.stack([m[k] for m in trace]) for k in trace[0]} if trace else {}
-        return opt_state, sched, stacked
+    return step_fn, StepRunner(step_fn)
 
-    return step_fn, run_steps
+
+class StepRunner:
+    """``run_steps(params, opt_state, sched, generator, n_steps) ->
+    (opt_state, sched, trace)``: ``n_steps`` steps of ``step_fn`` bound to
+    these ``params``, ``opt_state``, ``sched`` and ``generator``
+    (:func:`static_step`, which updates them in place; they come back as
+    given), the trace of each metric stacked over the steps on the device.
+    On the card the bound step is a :class:`CapturedStep` (``captured``),
+    replayed once a step after its warm-up; on the CPU it runs eagerly. A
+    call with other tensors binds them anew (a new capture on the card)."""
+
+    def __init__(self, step_fn: Callable):
+        self.step_fn = step_fn
+        self.binding: tuple = ()
+        self.names: list = []
+        self.captured: Optional[CapturedStep] = None
+        self._step: Optional[Callable[[], torch.Tensor]] = None
+
+    def __call__(self, params, opt_state, sched, generator, n_steps: int):
+        binding = (*params, opt_state, sched, generator)
+        if len(binding) != len(self.binding) or any(
+                a is not b for a, b in zip(binding, self.binding)):
+            step, self.names = static_step(self.step_fn, params, opt_state, sched,
+                                           generator)
+            on_card = params[0].device.type == "cuda"
+            self.captured = CapturedStep(step, generator) if on_card else None
+            self.binding, self._step = binding, self.captured or step
+        trace = None
+        for i in range(n_steps):
+            out = self._step()
+            if trace is None:
+                trace = torch.empty((n_steps, out.numel()), dtype=out.dtype,
+                                    device=out.device)
+            trace[i].copy_(out)
+        if trace is None:
+            return opt_state, sched, {}
+        return opt_state, sched, {k: trace[:, j] for j, k in enumerate(self.names)}
+
+
+def static_step(step_fn, params, opt_state, sched, generator):
+    """``step_fn`` bound to static tensors, as a CUDA graph needs it:
+    (step, metric names). ``step()`` takes one step; the parameters and the
+    optimizer state are updated in place (``optim.make_optimizer`` does
+    so), the plateau state is copied into ``sched``'s tensors, and the
+    metrics come back as one vector in the order of ``names`` (filled at
+    the first call)."""
+    names = []
+
+    def step() -> torch.Tensor:
+        new_opt, new_sched, metrics = step_fn(params, opt_state, sched, generator)
+        if new_opt is not opt_state:
+            raise ValueError("a static step needs an optimizer that updates "
+                             "its state in place")
+        if new_sched is not sched:
+            with torch.no_grad():
+                for dst, src in zip(sched, new_sched):
+                    dst.copy_(src)
+        if not names:
+            names.extend(metrics)
+        return torch.stack([metrics[k].to(torch.float32) for k in names])
+
+    return step, names
+
+
+class CapturedStep:
+    """One train step captured in a CUDA graph and replayed once a step (the
+    port's counterpart of the JAX package's jitted step scanned over a
+    chunk, ``qcpinn_tpu/train/loop.py``).
+
+    ``step()`` works on static tensors: it updates the parameters and the
+    optimizer and scheduler state in place and returns its metrics as one
+    tensor. The first ``warmup`` calls run it eagerly on a side stream, so
+    that kernel builds, ``cudaFuncSetAttribute``, the occupancy queries and
+    the cuBLAS workspaces all happen before the capture; the next call
+    captures one step, with ``generator`` (the samplers') registered with
+    the graph, and replays it; every later call replays it. Each call is
+    one training step and returns the step's metrics (the graph's static
+    output after a replay: read or copy it before the next call). A capture
+    that fails raises.
+
+    The kernels' launch counters (``LAUNCHES``) count in Python, so they see
+    the warm-up steps and the captured step, never a replay:
+    ``eager_steps`` and ``captured`` say how many steps they saw, and
+    ``replays`` how many steps ran without them."""
+
+    def __init__(self, step: Callable[[], torch.Tensor],
+                 generator: Optional[torch.Generator] = None,
+                 warmup: int = WARMUP_STEPS):
+        self.step = step
+        self.generator = generator
+        self.warmup = warmup
+        self.graph = None
+        self.out = None
+        self.eager_steps = 0
+        self.captured = 0
+        self.replays = 0
+        self._side = torch.cuda.Stream()
+
+    def __call__(self) -> torch.Tensor:
+        if self.graph is None:
+            if self.eager_steps < self.warmup:
+                self._side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(self._side):
+                    out = self.step()
+                torch.cuda.current_stream().wait_stream(self._side)
+                self.eager_steps += 1
+                return out
+            graph = torch.cuda.CUDAGraph()
+            if self.generator is not None:
+                graph.register_generator_state(self.generator)
+            with torch.cuda.graph(graph):
+                self.out = self.step()
+            self.graph = graph
+            self.captured = 1
+        self.graph.replay()
+        self.replays += 1
+        return self.out

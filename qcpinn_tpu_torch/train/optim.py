@@ -11,8 +11,11 @@ the same update as ``optax.adam`` and drives the bench step.
 optax-style transformation (``init`` / ``update``) of clip and Adam with a
 constant or cosine learning rate, written out in torch so the update is
 explicit and the plateau scale multiplies it as ``optim.scale_updates``
-does in JAX. The plateau state lives on the device and updates with
-``torch.where``: no host round trip.
+does in JAX. Its step count lives on the device, the learning rate and the
+bias corrections are computed there in f32 (as optax does), and the
+moments and the count update in place, so a step can be captured in a CUDA
+graph (``train/loop.py``). The plateau state lives on the device and
+updates with ``torch.where``: no host round trip.
 """
 
 from __future__ import annotations
@@ -43,18 +46,26 @@ def clip_by_global_norm(params: Iterable[torch.nn.Parameter], max_norm: float):
 B1, B2, EPS = 0.9, 0.999, 1e-8  # optax.adam's and torch.optim.Adam's defaults
 
 
-def adam(params, lr: float) -> torch.optim.Adam:
-    return torch.optim.Adam(params, lr=lr, betas=(B1, B2), eps=EPS)
+def adam(params, lr: float, capturable: bool = False) -> torch.optim.Adam:
+    """``capturable`` keeps Adam's step count on the card, so that its step
+    can be captured in a CUDA graph."""
+    return torch.optim.Adam(params, lr=lr, betas=(B1, B2), eps=EPS,
+                            capturable=capturable)
 
 
 # -- the optax-style chain -------------------------------------------------------
 
 
-def cosine_decay_schedule(lr: float, decay_steps: int) -> Callable[[int], float]:
+def cosine_decay_schedule(lr: float, decay_steps: int) -> Callable:
     """``optax.cosine_decay_schedule(lr, decay_steps)``: the k-th update
-    (k from 0) uses ``lr * 0.5 * (1 + cos(pi * min(k, E) / E))``."""
+    (k from 0) uses ``lr * 0.5 * (1 + cos(pi * min(k, E) / E))``. A Python
+    int gives a float; a device count gives an f32 tensor on its device,
+    computed as optax computes it."""
 
-    def schedule(count: int) -> float:
+    def schedule(count):
+        if isinstance(count, torch.Tensor):
+            k = torch.clamp(count, max=decay_steps).to(torch.float32)
+            return lr * (0.5 * (1.0 + torch.cos(math.pi * k / decay_steps)))
         k = min(count, decay_steps)
         return lr * 0.5 * (1.0 + math.cos(math.pi * k / decay_steps))
 
@@ -63,7 +74,7 @@ def cosine_decay_schedule(lr: float, decay_steps: int) -> Callable[[int], float]
 
 @dataclasses.dataclass
 class AdamState:
-    count: int  # updates taken so far (on the host: no device sync)
+    count: torch.Tensor  # int32 scalar on the device: updates taken so far
     mu: List[torch.Tensor]
     nu: List[torch.Tensor]
 
@@ -88,22 +99,28 @@ def make_optimizer(
              else (lambda count: lr))
 
     def init(params: Sequence[torch.Tensor]) -> AdamState:
-        return AdamState(0, [torch.zeros_like(p) for p in params],
+        device = params[0].device if len(params) else None
+        return AdamState(torch.zeros((), dtype=torch.int32, device=device),
+                         [torch.zeros_like(p) for p in params],
                          [torch.zeros_like(p) for p in params])
 
     @torch.no_grad()
     def update(grads, state: AdamState, params):
+        """(updates, state): ``state``'s moments and count are updated in
+        place and it is returned as it came."""
         g = list(grads)
         if grad_clip is not None and grad_clip > 0:
             g, _ = clip_grads(g, grad_clip)
-        count = state.count + 1
-        mu = [(1.0 - B1) * t + B1 * m for t, m in zip(g, state.mu)]
-        nu = [(1.0 - B2) * t * t + B2 * v for t, v in zip(g, state.nu)]
-        bc1, bc2 = 1.0 - B1**count, 1.0 - B2**count
         step = -sched(state.count)
+        state.count.add_(1)
+        for t, m, v in zip(g, state.mu, state.nu):
+            m.copy_((1.0 - B1) * t + B1 * m)
+            v.copy_((1.0 - B2) * t * t + B2 * v)
+        bc1 = 1.0 - torch.pow(B1, state.count)
+        bc2 = 1.0 - torch.pow(B2, state.count)
         updates = [step * ((m / bc1) / (torch.sqrt(v / bc2) + EPS))
-                   for m, v in zip(mu, nu)]
-        return updates, AdamState(count, mu, nu)
+                   for m, v in zip(state.mu, state.nu)]
+        return updates, state
 
     return GradientTransformation(init, update)
 

@@ -170,28 +170,30 @@ def _one_step_plan(n, hb):
 
 
 @pytest.mark.parametrize("n,hb,ok", [
-    (12, 6, True), (12, 7, True), (10, 3, True), (11, 4, True),
-    (12, 8, False), (12, 2, False), (10, 1, False), (13, 7, False),
+    (12, 6, True), (12, 7, True), (10, 5, True), (11, 6, True),
+    (12, 8, False), (12, 2, False), (10, 4, False), (13, 7, False),
 ])
 def test_check_plan_limits(n, hb, ok):
     """The CUDA wrappers refuse a plan the kernels cannot hold: more than
-    12 qubits, a 1-qubit block, or a split whose backward needs more shared
-    memory than a CTA has. Uneven splits within the limit are accepted."""
+    12 qubits or a block narrower than 32 (the backward's tensor-core
+    tiles). Uneven splits within the limits are accepted, and their
+    backward fits a CTA's opt-in shared memory on sm_90 (227 KiB)."""
     plan = _one_step_plan(n, hb)
     if ok:
         bk.check_plan(plan)
-        assert bk.smem_bytes(plan, 4) <= bk.SMEM_LIMIT
+        assert 0 < bk.bwd_config(plan)[2] <= 227 * 1024
     else:
         with pytest.raises(ValueError):
             bk.check_plan(plan)
 
 
 def test_smem_bytes_at_12_qubits():
-    # two state planes (fwd) or four (bwd) of [64, 65] plus a [64, 65]
-    # re/im matrix, in f32
+    # the backward: a tile of two samples' four [64, 64] planes and two
+    # [64, 64] re/im matrix buffers; a 128-wide block fits one sample and
+    # one [128, 128] buffer
     plan = _one_step_plan(12, 6)
-    assert bk.smem_bytes(plan, 2) == 4 * (2 * 64 * 65 + 2 * 64 * 65)
-    assert bk.smem_bytes(plan, 4) == 4 * (4 * 64 * 65 + 2 * 64 * 65)
+    assert bk.bwd_config(plan) == (2, 2, 4 * (2 * 4 * 64 * 64 + 2 * 2 * 64 * 64))
+    assert bk.bwd_config(_one_step_plan(12, 7)) == (1, 1, 4 * (4 * 4096 + 2 * 128 * 128))
 
 
 @pytest.mark.parametrize("n", [4, 6])

@@ -104,8 +104,8 @@ def test_auto_rule_on_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     for n, want in ((6, BlockFusedCircuit), (7, sk.FusedCircuit), (8, sk.FusedCircuit),
                     (9, sk.FusedCircuit), (10, bk.BlockKernelCircuit),
-                    (12, bk.BlockKernelCircuit), (13, BlockFusedCircuit),
-                    (16, BlockFusedCircuit)):
+                    (12, bk.BlockKernelCircuit), (13, lk.LoopFusedCircuit),
+                    (16, lk.LoopFusedCircuit)):
         eng = backends.make_fused_backend(DVCircuit(n, 1, "cross_mesh", seed=42))
         assert type(eng) is want, n
     ring = DVCircuit(12, 1, "cascade")
