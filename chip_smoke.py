@@ -6,15 +6,21 @@
 Phases, each printed as one JSON line; any failure exits non-zero:
 
 1. device      the card, nvidia-smi's name and power limit, versions, TF32 off.
-2. build       nvcc builds ops/csrc/block_chain.cu, ops/csrc/gate_loop.cu and
-               ops/csrc/unrolled_sv.cu from the checkout, one process per
-               source, started together.
-3. kernel_shapes the other sizes ``auto`` sends to the block-chain kernels
-               (n = 10, 11, 12 with 3 layers; B = 37 and B = 1), and uneven
-               block splits (a 128-wide block: one sample per backward CTA,
-               one matrix buffer) against the plain versions, same limits as
-               below, the backward bit-equal across two runs; a split with a
-               block narrower than 32 (n = 10, hb = 7) must be refused.
+2. build       nvcc builds ops/csrc/block_chain.cu, block_chain_cluster.cu,
+               gate_loop.cu and unrolled_sv.cu from the checkout, one
+               process per source, started together.
+3. kernel_shapes every configuration of the block-chain kernels against
+               the plain versions, same limits as below, the backward
+               bit-equal across two runs, each row with the pair that ran it:
+               the 12q pair at the other sizes ``auto`` sends to it (n = 10,
+               11, 12 with 3 layers; B = 37 and B = 1) and its uneven splits
+               (a 128-wide block: one sample per backward CTA, one matrix
+               buffer); the cluster pair at n = 2, 3, 4, 8, 9 (blocks 2-16
+               wide), n = 4 at hb 1 and 3, n = 10 at hb 7, n = 12 at hb 2
+               and 8, and 13, 14, 15, 16 qubits (clusters of 1-8 CTAs), B = 37.
+3b. k4b_probe  K3, K4 and K4b (and torch.sum over K4b's slabs) at the 8q
+               stream batch, timed here, before the 16q phases, and again
+               after them (the same function, ``when`` says which).
 4. kernels     every block-chain kernel at the 12q main path's shapes
                (B = 6144 stream rows and B = 682 value rows) against its
                plain PyTorch version on the same inputs: forward <= 2e-5
@@ -99,7 +105,26 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                per evaluation chunk, K4 and K4b twice per step they see, no
                plain version called.
 
-Then the kernel summary line, the nvidia-smi line, and the result line.
+16. cluster_kernels the cluster pair (K1/K2 at 13-16 qubits) and K2b at 16
+               qubits with B = 1536 stream rows and B = 425 value rows, and
+               at 13 qubits with the same batches: against the plain
+               versions (limits as in 4), timed beside the plain versions,
+               the complex einsum chain and its autograd backward alone,
+               with the bound at the FP32 peak (the products run on the FP32
+               units), the cluster size, grid, shared memory and registers.
+17. north_star_block the 16q north-star stage 2 on ``--backend
+               block_kernel``: one step against the plain block engine
+               (limits as in 5); 13 steps of the stage's ``run_steps`` (3
+               eager warm-ups, the capture, replays) against its eager
+               ``step_fn``, bit-equal (losses and parameters), with the launch counters set to
+               0 just before: each cluster kernel and K2b launched twice in
+               each step the counters see, no plain version called; then the
+               graphed stage-2 ms a step on block_kernel and loop in one
+               process, in turns (block_kernel, loop, loop, block_kernel),
+               and a torch.profiler window of each.
+
+Then the run's seconds, the kernel summary line, the nvidia-smi line, and the
+result line.
 
 Two measurements beside the smoke test, each one JSON line:
 
@@ -367,8 +392,7 @@ def loop_phases(dev, gen, card_peaks, smi, registers):
     from qcpinn_tpu_torch.ops import loop_kernel as lk
     from qcpinn_tpu_torch.ops.block_fused import BlockFusedCircuit
     from qcpinn_tpu_torch.ops.circuit import DVCircuit
-    from qcpinn_tpu_torch.train import optim as topt
-    from qcpinn_tpu_torch.train.loop import WARMUP_STEPS, TermSpec
+    from qcpinn_tpu_torch.train.loop import WARMUP_STEPS
 
     # -- 7. loop_shapes ------------------------------------------------------
     shape_errs = {}
@@ -457,41 +481,7 @@ def loop_phases(dev, gen, card_peaks, smi, registers):
 
     # -- 9. step_parity_16q: loop vs the plain block engine -------------------
     args = ns.parse_args(NORTH_STAR_ARGS)
-    terms = ns.make_terms(args)
-    pgen = torch.Generator(device=dev).manual_seed(11)
-    fixed = {k: TermSpec(_Fixed(*t.sampler.sample(pgen, t.batch)), t.weight, t.batch, t.kind)
-             for k, t in terms.items()}
-    captured = {}
-
-    def capture(grads, state, params):
-        captured["g"] = [g.detach().clone() for g in grads]
-        return [torch.zeros_like(g) for g in grads], state
-
-    opt = topt.GradientTransformation(lambda p: None, capture)
-    losses, grads = {}, {}
-    sd = None
-    for backend in ("loop", "block"):
-        st = NorthStarStepper(args, backend, dev, eager=True, state_dict=sd,
-                              terms=fixed, optimizer=opt)
-        sd = sd or {k: v.clone() for k, v in st.model.state_dict().items()}
-        losses[backend] = st.step().item()
-        grads[backend] = dict(zip([k for k, p in st.model.named_parameters()
-                                   if p.requires_grad], captured["g"]))
-        del st
-        torch.cuda.empty_cache()
-    if not math.isclose(losses["loop"], losses["block"], rel_tol=2e-5):
-        raise SystemExit(f"16q step loss {losses}")
-    worst = {}
-    for k, ref in grads["block"].items():
-        scale = max(ref.abs().max().item(), 1e-3)
-        e = (grads["loop"][k] - ref).abs().max().item()
-        if not e <= 2e-4 * scale:
-            raise SystemExit(f"16q step grad {k}: {e} > 2e-4 * {scale}")
-        worst[k] = e / scale
-    emit({"phase": "step_parity_16q", "loss_loop": losses["loop"],
-          "loss_block": losses["block"],
-          "max_grad_err_over_scale": max(worst.values())})
-    del grads
+    emit({"phase": "step_parity_16q", **stage2_parity(args, dev, "loop")})
 
     # -- 10. north_star: the 16q main path ------------------------------------
     torch.cuda.synchronize()
@@ -914,6 +904,29 @@ def take_steps(st, n):
     return torch.stack([st.step() for _ in range(n)])
 
 
+def graph_parity(tag, ref, got, l_ref, l_got):
+    """A graphed run (``got``) against its eager plain version (``ref``)
+    from the same seed: every step's loss within rtol 2e-5 and every
+    parameter after the last step within 2e-4 * max(|ref|, 1e-3)."""
+    for i, (a, b) in enumerate(zip(l_got, l_ref)):
+        if not (math.isfinite(a) and math.isclose(a, b, rel_tol=2e-5)):
+            raise SystemExit(f"{tag} step {i}: loss {a} against eager {b}")
+    worst = 0.0
+    want = dict(ref.model.named_parameters())
+    for k, p in got.model.named_parameters():
+        scale = max(want[k].abs().max().item(), 1e-3)
+        e = (p - want[k]).abs().max().item()
+        if not e <= 2e-4 * scale:
+            raise SystemExit(f"{tag} param {k}: {e} > 2e-4 * {scale}")
+        worst = max(worst, e / scale)
+    g = got.graph
+    return {"loss_first": l_got[0], "loss_last": l_got[-1],
+            "max_loss_rel_err": max(abs(a - b) / abs(b) for a, b in zip(l_got, l_ref)),
+            "bit_equal": l_got == l_ref and worst == 0.0,
+            "max_param_err_over_scale": worst, "eager_steps": g.eager_steps,
+            "captured": g.captured, "replays": g.replays}
+
+
 def graph_phase(dev, smi):
     """Phase ``graph``: each step the entry points capture in a CUDA graph
     against its eager plain version, from the same seed (params, optimizer
@@ -945,23 +958,8 @@ def graph_phase(dev, smi):
         ref, got = make(kind, True), make(kind, False)
         l_ref = take_steps(ref, GRAPH_PARITY_STEPS).tolist()
         l_got = take_steps(got, GRAPH_PARITY_STEPS).tolist()
-        for i, (a, b) in enumerate(zip(l_got, l_ref)):
-            if not math.isclose(a, b, rel_tol=2e-5):
-                raise SystemExit(f"graph {kind} step {i}: loss {a} against eager {b}")
-        worst = 0.0
-        want = dict(ref.model.named_parameters())
-        for k, p in got.model.named_parameters():
-            scale = max(want[k].abs().max().item(), 1e-3)
-            e = (p - want[k]).abs().max().item()
-            if not e <= 2e-4 * scale:
-                raise SystemExit(f"graph {kind} param {k}: {e} > 2e-4 * {scale}")
-            worst = max(worst, e / scale)
-        g = got.graph
-        row = {"loss_first": l_got[0], "loss_last": l_got[-1],
-               "max_loss_rel_err": max(abs(a - b) / abs(b) for a, b in zip(l_got, l_ref)),
-               "max_param_err_over_scale": worst, "eager_steps": g.eager_steps,
-               "captured": g.captured, "replays": g.replays, "timing": []}
-        del ref, got, g
+        row = {**graph_parity(f"graph {kind}", ref, got, l_ref, l_got), "timing": []}
+        del ref, got
         torch.cuda.empty_cache()
         for eager in (True, False, False, True):
             st = make(kind, eager)
@@ -1065,8 +1063,320 @@ def loop_step_costs():
           "launch": lk.launch_plan(dev, lp, b), "card": nvidia_smi_line()})
 
 
+# (n, layers, hi_bits, B): the 12q pair's sizes and uneven splits, then the
+# cluster pair's: blocks 2-16 wide, narrow and wide splits at 10-12 qubits,
+# and 13-16 qubits
+BLOCK_SHAPES = (
+    (10, 1, None, 37), (11, 1, None, 37), (12, 3, None, 37), (12, 1, None, 1),
+    (12, 1, 7, 37), (12, 1, 5, 37),
+    (2, 1, None, 37), (3, 1, None, 37), (4, 1, None, 37), (4, 1, 1, 37), (4, 1, 3, 37),
+    (8, 1, None, 37), (9, 1, None, 37), (10, 1, 7, 37), (12, 1, 2, 37), (12, 1, 8, 37),
+    (13, 1, None, 37), (14, 1, None, 37), (15, 1, None, 37), (16, 1, None, 37),
+)
+CLUSTER_SHAPES = ((16, LOOP_BATCHES), (13, LOOP_BATCHES))
+
+
+def block_inputs(eng, b, gen, dev):
+    """Packed mats and phases of ``eng`` at random params, unit-norm states
+    and a random cotangent [B, H, L]."""
+    import torch
+
+    p = 0.3 * torch.randn(eng.circuit.num_params, generator=gen, device=dev)
+    with torch.no_grad():
+        m, ph = eng.kernel_inputs(p)
+    hh, ll = 1 << eng.plan.hb, 1 << eng.plan.lb
+    x = torch.randn(4, b, hh, ll, generator=gen, device=dev)
+    nrm = torch.sqrt((x[0]**2 + x[1]**2).sum(dim=(1, 2), keepdim=True))
+    states = [(x[0] / nrm).contiguous(), (x[1] / nrm).contiguous(),
+              x[2].contiguous(), x[3].contiguous()]
+    return m, ph, states
+
+
+def check_block(bk, eng, b, gen, dev, tag, inputs=None):
+    """Both block-chain wrappers (whichever pair the plan goes to) against
+    the plain versions: forward <= FWD_TOL absolute, every backward output
+    <= BWD_RTOL * max|ref|, the backward bit-equal across two runs."""
+    import torch
+
+    plan = eng.plan
+    m, ph, (xr, xi, gr, gi) = inputs or block_inputs(eng, b, gen, dev)
+    mct = bk.conj_transpose(plan, m)
+    got = bk.block_chain_fwd(xr, xi, m, ph, plan)
+    want = bk.block_chain_fwd_ref(xr, xi, m, ph, plan)
+    e_fwd = max((a - r).abs().max().item() for a, r in zip(got, want))
+    bwd = bk.block_chain_bwd(*got, gr, gi, mct, ph, plan)
+    again = bk.block_chain_bwd(*got, gr, gi, mct, ph, plan)
+    ref = bk.block_chain_bwd_ref(*want, gr, gi, mct, ph, plan)
+    torch.cuda.synchronize()
+    e_abs = e_rel = 0.0
+    for a, r in zip(bwd, ref):
+        e, scale = (a - r).abs().max().item(), r.abs().max().item()
+        if not e <= BWD_RTOL * scale:
+            raise SystemExit(f"{tag}: block_chain_bwd err {e} > {BWD_RTOL} * {scale}")
+        e_abs, e_rel = max(e_abs, e), max(e_rel, e / scale)
+    if not e_fwd <= FWD_TOL:
+        raise SystemExit(f"{tag}: block_chain_fwd err {e_fwd} > {FWD_TOL}")
+    if not all(torch.equal(a, c) for a, c in zip(bwd, again)):
+        raise SystemExit(f"{tag}: block_chain_bwd is not deterministic")
+    return {"fwd_abs": e_fwd, "bwd_abs": e_abs, "bwd_rel": e_rel}
+
+
+def block_launch(bk, plan):
+    """The pair that runs ``plan`` and its launch shape."""
+    if not bk.uses_cluster_pair(plan):
+        tile, bufs, smem = bk.bwd_config(plan)
+        return {"pair": "12q", "bwd_samples_per_tile": tile, "bwd_mct_buffers": bufs,
+                "bwd_smem": smem}
+    cfg = bk.cluster_config(plan)
+    return {"pair": "cluster", "fwd_cluster": cfg.fwd_cluster,
+            "bwd_cluster": cfg.bwd_cluster, "split": "H" if cfg.part_hi else "L",
+            "fwd_smem": cfg.fwd_smem, "bwd_smem": cfg.bwd_smem}
+
+
+def lib_chain(plan, xc, mats_c, ph_c):
+    """The complex einsum chain of ``plan`` (cuBLAS, TF32 off): the library
+    call that computes K1's function."""
+    import torch
+
+    s = xc
+    for st in plan.steps:
+        if st.kind == "mat":
+            eq = "bkl,km->bml" if st.axis == "hi" else "bhk,km->bhm"
+            s = torch.einsum(eq, s, mats_c[st.idx])
+        else:
+            s = s * ph_c[st.idx]
+    return s
+
+
+def chain_work(bk, plan, b, m, p):
+    """(forward flops, forward bytes, backward flops, backward bytes) of the
+    block chain for B samples: a mat step is 8 H L K flops a sample (a
+    complex multiply-add per output per k), a diag 6 H L; the backward
+    recovers each step's input and pulls the cotangent back (twice the
+    forward's products) and forms dM (a third), and does 20 H L a diag.
+    Bytes: the states read and written once, the packed inputs, and the
+    backward's slab of cotangents once per kernel."""
+    h, l = 1 << plan.hb, 1 << plan.lb
+    mat = sum(8 * h * l * plan.mat_dim(i) for i in range(plan.n_mats))
+    state = 4 * b * h * l
+    small = 4 * (m.numel() + p.numel())
+    slab = 4 * (bk._step_table(plan)[1] + p.numel())
+    return (b * (mat + 6 * h * l * plan.n_diags), 4 * state + small,
+            3 * b * mat + 20 * b * h * l * plan.n_diags, 6 * state + small + slab)
+
+
+def cluster_phase(dev, gen, card_peaks, smi, registers):
+    """Phase ``cluster_kernels``; returns its results by (n, B)."""
+    import torch
+
+    from qcpinn_tpu_torch.ops import block_kernel as bk
+    from qcpinn_tpu_torch.ops.circuit import DVCircuit
+
+    out = {}
+    for n, batches in CLUSTER_SHAPES:
+        eng = bk.BlockKernelCircuit(DVCircuit(n, 1, "cross_mesh", seed=42))
+        plan = eng.plan
+        cfg = bk.cluster_config(plan)
+        for b in batches:
+            tag = f"{n}q_B{b}"
+            m, p, states = block_inputs(eng, b, gen, dev)
+            xr, xi, gr, gi = states
+            errs = check_block(bk, eng, b, gen, dev, tag, (m, p, states))
+            mct = bk.conj_transpose(plan, m)
+            y = bk.block_chain_fwd(xr, xi, m, p, plan)
+            y_ref = bk.block_chain_fwd_ref(xr, xi, m, p, plan)
+            mats, phases = bk.unpack(plan, m, p)
+            mats_c = [torch.complex(a, c) for a, c in mats]
+            ph_c = [torch.complex(a, c) for a, c in phases]
+            xc = torch.complex(xr, xi)
+            f_ops, f_bytes, b_ops, b_bytes = chain_work(bk, plan, b, m, p)
+            fb, fby = bound(f_ops, f_bytes, card_peaks)
+            bb, bby = bound(b_ops, b_bytes, card_peaks)
+            reps = 5 if n == 16 else TIME_REPS
+            row = {"fwd": {
+                "max_abs_err": errs["fwd_abs"], "tol": FWD_TOL,
+                "ms": time_ms(lambda: bk.block_chain_fwd(xr, xi, m, p, plan), reps=reps),
+                "plain_ms": time_ms(lambda: bk.block_chain_fwd_ref(xr, xi, m, p, plan),
+                                    reps=5),
+                "library_ms": time_ms(lambda: lib_chain(plan, xc, mats_c, ph_c), reps=reps),
+                "library": "the complex einsum chain (cuBLAS, TF32 off)",
+                "bound_ms": fb, "bound_by": fby, "bound_rate": "FP32 SIMT peak",
+                "cluster": cfg.fwd_cluster, "smem_per_cta": cfg.fwd_smem,
+                "grid_clusters": min(b, bk.max_clusters(dev, plan, bwd=False)),
+                "registers": registers.get("block_cluster_fwd_kernel"),
+            }}
+            xg = xc.clone().requires_grad_(True)
+            mg = [t.clone().requires_grad_(True) for t in mats_c]
+            pg = [t.clone().requires_grad_(True) for t in ph_c]
+            gc = torch.complex(gr, gi)
+            y_lib = lib_chain(plan, xg, mg, pg)
+            _, _, partials = bk.block_chain_bwd_partials(*y, gr, gi, mct, p, plan)
+            row["bwd"] = {
+                "max_abs_err": errs["bwd_abs"], "max_rel_err": errs["bwd_rel"],
+                "tol": f"{BWD_RTOL}*max|ref|",
+                "ms": time_ms(lambda: bk.block_chain_bwd_partials(
+                    *y, gr, gi, mct, p, plan), reps=reps),
+                "plain_ms": time_ms(lambda: bk.block_chain_bwd_ref(
+                    *y_ref, gr, gi, mct, p, plan), reps=5),
+                "library_ms": time_ms(lambda: torch.autograd.grad(
+                    y_lib, [xg, *mg, *pg], grad_outputs=gc, retain_graph=True),
+                    reps=reps),
+                "library": "autograd backward alone of the complex einsum chain",
+                "bound_ms": bb, "bound_by": bby, "bound_rate": "FP32 SIMT peak",
+                "cluster": cfg.bwd_cluster, "smem_per_cta": cfg.bwd_smem,
+                "grid_clusters": partials.shape[0],
+                "registers": registers.get("block_cluster_bwd_kernel"),
+            }
+            g, slab = partials.shape
+            rb, rby = bound(g * slab, 4 * (g + 1) * slab, card_peaks)
+            red_err = (bk.block_chain_reduce(partials)
+                       - bk.block_chain_reduce_ref(partials)).abs().max().item()
+            row["reduce"] = {
+                "max_abs_err": red_err, "shape": [g, slab],
+                "ms": time_ms(lambda: bk.block_chain_reduce(partials)),
+                "plain_ms": time_ms(lambda: bk.block_chain_reduce_ref(partials), reps=5),
+                "library_ms": time_ms(lambda: torch.sum(partials, dim=0)),
+                "bound_ms": rb, "bound_by": rby,
+            }
+            out[tag] = row
+            del y, y_ref, y_lib, xg, mg, pg, gc, xc, states, partials
+            torch.cuda.empty_cache()
+    emit({"phase": "cluster_kernels", "card": smi, "results": out})
+    return out
+
+
+def stage2_parity(args, dev, backend):
+    """One north-star stage-2 step through ``backend`` against the same step
+    on the plain block engine (RBF head, same weights and points): loss rtol
+    2e-5, every grad atol 2e-4 * max(|ref|, 1e-3)."""
+    import torch
+
+    from qcpinn_tpu_torch import north_star as ns
+    from qcpinn_tpu_torch.train import optim as topt
+    from qcpinn_tpu_torch.train.loop import TermSpec
+
+    terms = ns.make_terms(args)
+    pgen = torch.Generator(device=dev).manual_seed(11)
+    fixed = {k: TermSpec(_Fixed(*t.sampler.sample(pgen, t.batch)), t.weight, t.batch, t.kind)
+             for k, t in terms.items()}
+    captured = {}
+
+    def capture(grads, state, params):
+        captured["g"] = [g.detach().clone() for g in grads]
+        return [torch.zeros_like(g) for g in grads], state
+
+    opt = topt.GradientTransformation(lambda p: None, capture)
+    losses, grads = {}, {}
+    sd = None
+    for name in (backend, "block"):
+        st = NorthStarStepper(args, name, dev, eager=True, state_dict=sd,
+                              terms=fixed, optimizer=opt)
+        sd = sd or {k: v.clone() for k, v in st.model.state_dict().items()}
+        losses[name] = st.step().item()
+        grads[name] = dict(zip([k for k, p in st.model.named_parameters()
+                                if p.requires_grad], captured["g"]))
+        del st
+        torch.cuda.empty_cache()
+    if not math.isclose(losses[backend], losses["block"], rel_tol=2e-5):
+        raise SystemExit(f"16q step loss {losses}")
+    worst = {}
+    for k, ref in grads["block"].items():
+        scale = max(ref.abs().max().item(), 1e-3)
+        e = (grads[backend][k] - ref).abs().max().item()
+        if not e <= 2e-4 * scale:
+            raise SystemExit(f"16q step grad {k} ({backend}): {e} > 2e-4 * {scale}")
+        worst[k] = e / scale
+    return {f"loss_{backend}": losses[backend], "loss_block": losses["block"],
+            "max_grad_err_over_scale": max(worst.values())}
+
+
+def north_star_block_phase(dev, smi):
+    """Phase ``north_star_block``; returns the launch counters of the
+    graphed stage-2 run (the block_kernel main path)."""
+    import torch
+
+    from qcpinn_tpu_torch import bench, north_star as ns
+    from qcpinn_tpu_torch.ops import block_kernel as bk
+    from qcpinn_tpu_torch.train.loop import WARMUP_STEPS
+
+    args = ns.parse_args(NORTH_STAR_ARGS)
+    parity = stage2_parity(args, dev, "block_kernel")
+    ref = NorthStarStepper(args, "block_kernel", dev, eager=True)
+    l_ref = ref.steps(GRAPH_PARITY_STEPS).tolist()
+    got = NorthStarStepper(args, "block_kernel", dev)
+    if not isinstance(got.model.qblock, bk.BlockKernelCircuit):
+        raise SystemExit(f"north_star_block: engine {type(got.model.qblock).__name__}")
+    torch.cuda.synchronize()
+    bk.reset_launches()
+    l_got = got.steps(GRAPH_PARITY_STEPS).tolist()
+    torch.cuda.synchronize()
+    launches = dict(bk.LAUNCHES)
+    g = got.graph
+    seen = g.eager_steps + g.captured
+    for k in ("block_cluster_fwd", "block_cluster_bwd", "block_chain_reduce"):
+        if launches[k] != 2 * seen:
+            raise SystemExit(f"north_star_block: {k} launched {launches[k]} times "
+                             f"in {seen} steps the counters see")
+    for k in ("block_chain_fwd", "block_chain_bwd", "block_chain_fwd_ref",
+              "block_chain_bwd_ref", "block_chain_reduce_ref"):
+        if launches[k] != 0:
+            raise SystemExit(f"north_star_block: {k} ran {launches[k]} times")
+    graph = graph_parity("north_star_block", ref, got, l_ref, l_got)
+    if not graph["bit_equal"]:  # the cluster pair is deterministic
+        raise SystemExit(f"north_star_block: replays not bit-equal to eager: {graph}")
+    del ref, got, g
+    torch.cuda.empty_cache()
+    rates = {"block_kernel": [], "loop": []}
+    profiles = {}
+    for backend in ("block_kernel", "loop", "loop", "block_kernel"):
+        st = NorthStarStepper(args, backend, dev)
+        st.steps(WARMUP_STEPS + 2)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        float(st.steps(RATE_STEPS)[-1])
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t1) / RATE_STEPS
+        rates[backend].append({"ms_per_step": 1e3 * dt, "points_per_sec": args.batch / dt})
+        if backend not in profiles:
+            profiles[backend] = bench.profile(st, 1e3 * dt, steps=3, top=8)
+        del st
+        torch.cuda.empty_cache()
+    emit({"phase": "north_star_block", "step_parity": parity, "graph": graph,
+          "launches": launches, "rates": rates, "profiles": profiles, "card": smi})
+    return launches
+
+
+def k4b_probe(dev, gen, when):
+    """Phase ``k4b_probe``: K3, K4 and K4b, and torch.sum over K4b's slabs,
+    at the 8q main path's stream batch (the evolve of B = 6144 rows)."""
+    import torch
+
+    from qcpinn_tpu_torch.ops import sv_kernel as sk
+    from qcpinn_tpu_torch.ops.circuit import DVCircuit
+
+    circ = DVCircuit(SV_QUBITS, 1, "cross_mesh", seed=42)
+    mp, _, _, banks, (xr, xi, gr, gi) = sv_inputs(sk, circ, SV_BATCHES[0][0], "evolve",
+                                                  gen, dev)
+    y = sk.unrolled_fwd(xr, xi, *banks, mp)
+    partials = sk.unrolled_bwd_partials(*y, gr, gi, *banks, mp)[-1]
+    row = {"phase": "k4b_probe", "when": when, "batch": SV_BATCHES[0][0],
+           "slabs": list(partials.shape),
+           "unrolled_fwd_ms": time_ms(lambda: sk.unrolled_fwd(xr, xi, *banks, mp)),
+           "unrolled_bwd_ms": time_ms(
+               lambda: sk.unrolled_bwd_partials(*y, gr, gi, *banks, mp)),
+           "unrolled_reduce_ms": time_ms(lambda: sk.unrolled_reduce(partials)),
+           "torch_sum_ms": time_ms(lambda: torch.sum(partials, dim=0)),
+           "card": nvidia_smi_line()}
+    emit(row)
+    del y, partials, xr, xi, gr, gi
+    torch.cuda.empty_cache()
+    return row
+
+
 def main():
     import torch
+
+    t_start = time.perf_counter()
 
     if len(sys.argv) == 3 and sys.argv[1] == "--stage2-rate":
         return stage2_rate(sys.argv[2])
@@ -1099,7 +1409,8 @@ def main():
     card_peaks = peaks(name)
 
     # -- 2. build ----------------------------------------------------------
-    built = cuda_build.build_all(["block_chain", "gate_loop", "unrolled_sv"])
+    built = cuda_build.build_all(["block_chain", "block_chain_cluster", "gate_loop",
+                                  "unrolled_sv"])
     emit({"phase": "build", "sources": {
         f"qcpinn_tpu_torch/ops/csrc/{name}.cu": {
             "seconds": seconds, "library": os.path.relpath(path),
@@ -1107,49 +1418,18 @@ def main():
                       if "registers" in ln or "spill" in ln]}
         for name, (path, seconds, report) in built.items()}})
 
-    # -- 3. the other shapes auto sends to the kernels (10 <= n <= 12) ----
+    # -- 3. every configuration of the block-chain kernels -------------------
     gen = torch.Generator(device=dev).manual_seed(7)
     shape_errs = {}
-    for n, layers, hb, b in ((10, 1, None, 37), (11, 1, None, 37),
-                             (12, 3, None, 37), (12, 1, None, 1),
-                             (12, 1, 7, 37), (12, 1, 5, 37), (10, 1, 7, 37)):
-        eng = bk.BlockKernelCircuit(DVCircuit(n, layers, "cross_mesh", seed=42),
-                                    hi_bits=hb)
+    for n, layers, hb, b in BLOCK_SHAPES:
+        eng = bk.BlockKernelCircuit(
+            DVCircuit(n, layers, "cross_mesh", seed=42 if n >= 7 else None), hi_bits=hb)
         tag = f"n{n}_hb{eng.plan.hb}_layers{layers}_B{b}"
-        if min(eng.plan.hb, eng.plan.lb) < bk.MIN_BLOCK_BITS:
-            # a block narrower than the backward's tensor-core tiles: the
-            # wrappers refuse it before any launch
-            try:
-                bk.check_plan(eng.plan)
-            except ValueError as e:
-                shape_errs[tag] = {"refused": str(e)}
-                continue
-            raise SystemExit(f"{tag}: check_plan accepted a {eng.plan.hb}/"
-                             f"{eng.plan.lb} split")
-        p = 0.3 * torch.randn(eng.circuit.num_params, generator=gen, device=dev)
-        with torch.no_grad():
-            m, ph = eng.kernel_inputs(p)
-        hh, ll = 1 << eng.plan.hb, 1 << eng.plan.lb
-        x = torch.randn(4, b, hh, ll, generator=gen, device=dev)
-        nrm = torch.sqrt((x[0]**2 + x[1]**2).sum(dim=(1, 2), keepdim=True))
-        xr, xi, gr, gi = (x[0] / nrm), (x[1] / nrm), x[2], x[3]
-        mct = bk.conj_transpose(eng.plan, m)
-        got = bk.block_chain_fwd(xr, xi, m, ph, eng.plan)
-        want = bk.block_chain_fwd_ref(xr, xi, m, ph, eng.plan)
-        e_fwd = max((a - r).abs().max().item() for a, r in zip(got, want))
-        bwd = bk.block_chain_bwd(*got, gr.contiguous(), gi.contiguous(), mct, ph, eng.plan)
-        again = bk.block_chain_bwd(*got, gr.contiguous(), gi.contiguous(), mct, ph,
-                                   eng.plan)
-        want = bk.block_chain_bwd_ref(*want, gr, gi, mct, ph, eng.plan)
-        e_bwd = max((a - r).abs().max().item() / r.abs().max().item()
-                    for a, r in zip(bwd, want))
-        if not (e_fwd <= FWD_TOL and e_bwd <= BWD_RTOL):
-            raise SystemExit(f"{tag}: fwd {e_fwd} bwd {e_bwd}")
-        if not all(torch.equal(a, c) for a, c in zip(bwd, again)):
-            raise SystemExit(f"{tag}: block_chain_bwd is not deterministic")
-        shape_errs[tag] = {"fwd_abs": e_fwd, "bwd_rel": e_bwd,
-                           "bwd_tile_buffers_smem": bk.bwd_config(eng.plan)}
-    emit({"phase": "kernel_shapes", "results": shape_errs})
+        shape_errs[tag] = {**check_block(bk, eng, b, gen, dev, tag),
+                           **block_launch(bk, eng.plan)}
+    emit({"phase": "kernel_shapes", "tol": {"fwd_abs": FWD_TOL, "bwd": f"{BWD_RTOL}*max|ref|"},
+          "results": shape_errs})
+    k4b_before = k4b_probe(dev, gen, "before the 16q phases")
 
     # -- 4. kernels vs plain versions at the main path's shapes ------------
     registers = ptxas_registers(built["block_chain"][2])
@@ -1165,16 +1445,6 @@ def main():
     mats_bytes = 4 * m.numel()
     ph_bytes = 4 * p.numel()
     mat_flops = sum(8 * h * l * plan.mat_dim(i) for i in range(plan.n_mats))
-
-    def lib_chain(xc, mats_c, ph_c):
-        s = xc
-        for st in plan.steps:
-            if st.kind == "mat":
-                eq = "bkl,km->bml" if st.axis == "hi" else "bhk,km->bhm"
-                s = torch.einsum(eq, s, mats_c[st.idx])
-            else:
-                s = s * ph_c[st.idx]
-        return s
 
     mats_c = [torch.complex(mr, mi) for mr, mi in mats]
     ph_c = [torch.complex(c, s) for c, s in phases]
@@ -1204,7 +1474,7 @@ def main():
             "ms": time_ms(lambda: bk.block_chain_fwd(xr, xi, m, p, plan)),
             "plain_ms": time_ms(
                 lambda: bk.block_chain_fwd_ref(xr, xi, m, p, plan)),
-            "library_ms": time_ms(lambda: lib_chain(xc, mats_c, ph_c)),
+            "library_ms": time_ms(lambda: lib_chain(plan, xc, mats_c, ph_c)),
             "bound_ms": fb, "bound_by": fby,
         }
 
@@ -1253,7 +1523,7 @@ def main():
         gc = torch.complex(gr, gi)
         # the library's backward alone: its graph is built once, outside
         # the timed calls, as the kernel's forward is outside K2's time
-        y_lib = lib_chain(xg, mg, pg)
+        y_lib = lib_chain(plan, xg, mg, pg)
 
         def lib_bwd():
             return torch.autograd.grad(y_lib, [xg, *mg, *pg], grad_outputs=gc,
@@ -1312,8 +1582,20 @@ def main():
                                ptxas_registers(built["gate_loop"][2]))
     torch.cuda.empty_cache()
 
+    # -- 16-17. the cluster pair at 13-16 qubits and on the 16q stage 2 ----
+    cluster = cluster_phase(dev, gen, card_peaks, smi,
+                            ptxas_registers(built["block_chain_cluster"][2]))
+    torch.cuda.empty_cache()
+    ns_block_launches = north_star_block_phase(dev, smi)
+    torch.cuda.empty_cache()
+
     # -- 11-15. the 8q main path and the plain solver through K3/K4 ----------
     unrolled_results = unrolled_phases(dev, gen, card_peaks, smi)
+    k4b_after = k4b_probe(dev, gen, "after the 16q phases")
+    emit({"phase": "k4b_question", "k4b_ms_before": k4b_before["unrolled_reduce_ms"],
+          "k4b_ms_after": k4b_after["unrolled_reduce_ms"],
+          "torch_sum_ms_before": k4b_before["torch_sum_ms"],
+          "torch_sum_ms_after": k4b_after["torch_sum_ms"]})
 
     sources = {
         "block_chain_fwd": "qcpinn_tpu/ops/block_pallas.py:189",
@@ -1337,7 +1619,25 @@ def main():
                if key in r},
             "by_batch": {str(bb): v for bb, v in by_b.items()},
         })
+    # the cluster pair: its launches on the block_kernel stage-2 path
+    for k, part, src in (("block_cluster_fwd", "fwd", "qcpinn_tpu/ops/block_pallas.py:189"),
+                         ("block_cluster_bwd", "bwd", "qcpinn_tpu/ops/block_pallas.py:222")):
+        by_b = {tag: row[part] for tag, row in cluster.items()}
+        r = by_b[f"16q_B{LOOP_BATCHES[0]}"]
+        kernels.append({
+            "name": k, "route": "cuda",
+            "source": "qcpinn_tpu_torch/ops/csrc/block_chain_cluster.cu",
+            "replaces": src, "launches": ns_block_launches[k],
+            "max_abs_err": max(v["max_abs_err"] for v in by_b.values()),
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "batch": LOOP_BATCHES[0], "n_qubits": 16,
+            **{key: r[key] for key in ("bound_rate", "cluster", "smem_per_cta",
+                                       "registers", "grid_clusters")},
+            "by_shape": by_b,
+        })
     kernels += loop_results + unrolled_results
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -3,9 +3,11 @@ qcpinn_tpu/ops/pallas_loop.py::make_fused_backend).
 
 - ``block``: :class:`BlockFusedCircuit`, plain torch, any-order AD.
 - ``block_kernel``: :class:`BlockKernelCircuit`, the raw segment chain in
-  the hand-written CUDA block-chain kernels (n <= 12 on the card);
-  reverse-mode AD only; needs a decomposition with no boundary-straddling
-  segment (cross_mesh qualifies, ring-closure ansatzes do not).
+  the hand-written CUDA block-chain kernels (2 <= n <= 16 at any hi/lo
+  split on the card: the 12-qubit pair at 10 <= n <= 12 with both blocks
+  32-128 wide, the cluster pair at every other plan); reverse-mode AD
+  only; needs a decomposition with no boundary-straddling segment
+  (cross_mesh qualifies, ring-closure ansatzes do not).
 - ``loop``: :class:`LoopFusedCircuit`, the gate table in the hand-written
   CUDA gate-loop kernels (1 <= n <= 16 on the card); any ansatz;
   reverse-mode AD only.
@@ -16,8 +18,9 @@ qcpinn_tpu/ops/pallas_loop.py::make_fused_backend).
 ``auto`` is a stated rule, not a fallback: on CUDA it picks ``unrolled`` at
 7 <= n <= 9 (as the compiled JAX default does), ``block_kernel`` at
 10 <= n <= 12 when ``supports()`` holds, ``loop`` at 13 <= n <= 16 (the
-16-qubit step took 151 ms of card time against 234 ms on ``block``, whose
-block-chain kernels stop at 12 qubits), else ``block``; on the CPU it
+graphed 16-qubit stage-2 step took 150 ms against 203 ms on ``block``; the
+cluster pair that runs ``block_kernel`` there is slower than the gate
+loop, PERF.md section 6), else ``block``; on the CPU it
 picks ``block``. At n >= 10 this differs from the JAX default, which picks
 the plain XLA block engine: that choice was a TPU measurement and says
 nothing about the H100. Nothing here catches an error and carries on.
@@ -34,6 +37,7 @@ from .loop_kernel import LoopFusedCircuit
 from .sv_kernel import FusedCircuit
 
 BACKENDS = ("auto", "block", "block_kernel", "loop", "unrolled")
+AUTO_BLOCK_KERNEL = range(10, 13)  # the qubit counts auto sends to block_kernel
 
 
 def make_fused_backend(circuit: DVCircuit, backend: str = "auto", device=None):
@@ -46,9 +50,9 @@ def make_fused_backend(circuit: DVCircuit, backend: str = "auto", device=None):
         on_card = device.type == "cuda"
         if on_card and 7 <= circuit.n <= 9:
             backend = "unrolled"
-        elif on_card and 10 <= circuit.n <= MAX_QUBITS and supports(circuit):
+        elif on_card and circuit.n in AUTO_BLOCK_KERNEL and supports(circuit):
             backend = "block_kernel"
-        elif on_card and MAX_QUBITS < circuit.n <= loop_kernel.MAX_QUBITS:
+        elif on_card and AUTO_BLOCK_KERNEL.stop <= circuit.n <= loop_kernel.MAX_QUBITS:
             backend = "loop"
         else:
             backend = "block"

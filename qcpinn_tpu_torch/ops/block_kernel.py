@@ -1,39 +1,48 @@
 """Block-chain kernels: the whole block-segment chain of one evolve in one
 launch (port of qcpinn_tpu/ops/block_pallas.py).
 
-``csrc/block_chain.cu`` holds two hand-written CUDA kernels for Hopper
-(sm_90a) and a reduction pass:
+Two kernel pairs, each a forward and a reverse-sweep backward written by
+hand in CUDA for Hopper (sm_90a), share one slab reduction:
 
-- ``block_chain_fwd`` replaces ``block_pallas.py::_forward_kernel``. Each
-  CTA keeps one sample's split re/im ``[H, L]`` state in shared memory for
-  the whole chain, so the state is read and written once.
-- ``block_chain_bwd`` replaces ``block_pallas.py::_backward_kernel``. It
-  sweeps the plan in reverse with O(1) state memory: the matrices arrive
-  conj-transposed, and one contraction with them both recovers each step's
-  input and pulls the cotangent back. Its three complex products per mat
-  step run on the tensor cores in 3xTF32 (a TF32 high and low part of each
-  f32 operand, hi*hi + hi*lo + lo*hi in f32), on a tile of samples per
-  CTA (:func:`bwd_config`). The matrix and phase cotangents are batch
-  sums: each CTA sums its tile in registers, adds it into its own partial
-  slab once a tile (one CTA per SM, so the slabs stay in L2), and
-  ``block_chain_reduce`` adds the slabs in a fixed order (no float
-  atomics, deterministic).
+- ``csrc/block_chain.cu``, the 12-qubit pair, takes 10 <= n <= 12 with both
+  blocks 32 to 128 wide (the plans ``auto`` sends to ``block_kernel``).
+  ``block_chain_fwd_kernel`` replaces ``block_pallas.py::_forward_kernel``:
+  each CTA keeps one sample's split re/im ``[H, L]`` state in shared memory
+  for the whole chain, so the state is read and written once.
+  ``block_chain_bwd_kernel`` replaces ``block_pallas.py::_backward_kernel``.
+  It sweeps the plan in reverse with O(1) state memory: the matrices
+  arrive conj-transposed, and one contraction with them both recovers each
+  step's input and pulls the cotangent back. Its three complex products
+  per mat step run on the tensor cores in 3xTF32 (a TF32 high and low part
+  of each f32 operand, hi*hi + hi*lo + lo*hi in f32), on a tile of samples
+  per CTA (:func:`bwd_config`).
+- ``csrc/block_chain_cluster.cu``, the cluster pair, takes every other plan
+  with n <= 16 at any hi/lo split (:func:`uses_cluster_pair`): one sample
+  is held by a thread-block cluster of 1 to 8 CTAs, split along the wider
+  axis, read across ranks through distributed shared memory
+  (:func:`cluster_config`); its products are a tiled FP32 GEMM that pads a
+  block narrower than a tile with zeros.
+
+The matrix and phase cotangents are batch sums: each CTA (12q pair) or
+cluster (cluster pair) sums its samples into its own partial slab, and
+``block_chain_reduce`` adds the slabs in a fixed order (no float atomics,
+deterministic).
 
 Bound: at 12 qubits (H = L = K = 64) every mat step is a 64x64x64 complex
-product per sample, ~21 FMA per byte of state, so the kernels are bound by
-arithmetic. Both keep the state on chip for the whole chain; the forward
-gives each thread a 4x4 complex register tile on the FP32 units, on
-bank-conflict-free padded rows.
+product per sample, ~21 FMA per byte of state, and at 16 qubits a
+256x256x256 one, so the kernels are bound by arithmetic; both pairs keep
+the state on chip for the whole chain.
 
 The state keeps one ``[H, L]`` orientation throughout: the Pallas kernel's
 transposes exist because Mosaic contracts only the minor dim, and the GPU
 indexes the stepped axis directly. Phases and their cotangents are ``[H, L]``
 as well, so the wrappers transpose nothing.
 
-Each kernel has a plain PyTorch version beside it (``*_ref``), which runs
-for CPU tensors (the tests) and, on the card, only in the tests and
-``chip_smoke.py``. For a CUDA tensor a wrapper launches its kernel or
-raises. ``LAUNCHES`` counts kernel launches and plain-version calls.
+Each kernel has a plain PyTorch version beside it (``*_ref``, one for both
+pairs), which runs for CPU tensors (the tests) and, on the card, only in
+the tests and ``chip_smoke.py``. For a CUDA tensor a wrapper launches its
+kernel or raises. ``LAUNCHES`` counts kernel launches and plain-version
+calls.
 
 Parameter gradients flow outside the kernels: autograd chains the matrix
 and phase cotangents through ``_block_unitary`` and ``DiagRun.phases``.
@@ -54,15 +63,16 @@ from . import cuda_build
 from .block_fused import BlockFusedCircuit, Segment, _block_unitary
 from .circuit import DVCircuit
 
-MAX_QUBITS = 12  # one sample's state must fit in one CTA's shared memory
-MIN_BLOCK_BITS = 5  # the backward's tensor-core tiles are 32 rows deep
-MAX_STEPS = 128  # QC_MAX_STEPS in csrc/block_chain.cu
+MAX_QUBITS = 16  # a sample in a cluster of at most 8 CTAs (cluster_config)
+MAX_STEPS = 128  # QC_MAX_STEPS / BC_MAX_STEPS in csrc/block_chain*.cu
 
 
 LAUNCHES = {
     "block_chain_fwd": 0,
     "block_chain_bwd": 0,
     "block_chain_reduce": 0,
+    "block_cluster_fwd": 0,
+    "block_cluster_bwd": 0,
     "block_chain_fwd_ref": 0,
     "block_chain_bwd_ref": 0,
     "block_chain_reduce_ref": 0,
@@ -268,9 +278,10 @@ def block_chain_reduce_ref(partials: torch.Tensor) -> torch.Tensor:
     return out
 
 
-# -- the CUDA library ----------------------------------------------------------
+# -- the CUDA libraries --------------------------------------------------------
 
 _LIB: Optional[ctypes.CDLL] = None
+_CLUSTER_LIB: Optional[ctypes.CDLL] = None
 
 
 def _lib() -> ctypes.CDLL:
@@ -288,6 +299,23 @@ def _lib() -> ctypes.CDLL:
         lib.qc_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+def _cluster_lib() -> ctypes.CDLL:
+    global _CLUSTER_LIB
+    if _CLUSTER_LIB is None:
+        lib = ctypes.CDLL(cuda_build.build("block_chain_cluster")[0])
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.qc_block_cluster_fwd.argtypes = [p] * 6 + [i] * 5 + [p, i, i, p]
+        lib.qc_block_cluster_bwd.argtypes = [p] * 9 + [i] * 7 + [p, i, i, p]
+        lib.qc_block_cluster_max_clusters.argtypes = [i] * 5 + [ctypes.POINTER(i)]
+        for fn in (lib.qc_block_cluster_fwd, lib.qc_block_cluster_bwd,
+                   lib.qc_block_cluster_max_clusters):
+            fn.restype = i
+        lib.qc_error_string.argtypes = [i]
+        lib.qc_error_string.restype = ctypes.c_char_p
+        _CLUSTER_LIB = lib
+    return _CLUSTER_LIB
 
 
 def _raise_on(lib, err: int, what: str) -> None:
@@ -314,32 +342,73 @@ def _step_table(plan: KPlan) -> Tuple[np.ndarray, int]:
     return np.ascontiguousarray(rows, dtype=np.int32).reshape(-1, 3), off
 
 
+def uses_cluster_pair(plan: KPlan) -> bool:
+    """The dispatch rule between the two kernel pairs: the 12-qubit pair
+    (csrc/block_chain.cu) takes 10 <= n <= 12 with both blocks at least 32
+    wide (so at most 128: its tensor-core tiles are 32 rows deep and its
+    CTA holds a whole sample); the cluster pair
+    (csrc/block_chain_cluster.cu) takes every other plan."""
+    return not (10 <= plan.n <= 12 and min(plan.hb, plan.lb) >= 5)
+
+
+# the cluster pair's buffers (csrc/block_chain_cluster.cu): BC_OUT complex
+# entries of write-back buffer, 4 staged tiles of BC_TP x (BC_TMAX + 1)
+_BC_OUT = 4096
+_BC_TILE_FLOATS = 4 * 8 * 257
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusterConfig:
+    """How the cluster pair holds one sample: clusters of ``fwd_cluster`` /
+    ``bwd_cluster`` CTAs splitting H (``part_hi``) or L into equal slices,
+    with ``fwd_smem`` / ``bwd_smem`` bytes of shared memory a CTA."""
+
+    fwd_cluster: int
+    bwd_cluster: int
+    part_hi: bool
+    fwd_smem: int
+    bwd_smem: int
+
+
+def cluster_config(plan: KPlan) -> ClusterConfig:
+    """The cluster pair's partition of ``plan`` (launch_config in
+    csrc/block_chain_cluster.cu checks it): the ranks split the wider axis
+    (H on a tie); a cluster is the least power of two CTAs that keeps a
+    CTA's state planes (forward: the state, backward: state and cotangent)
+    within 128 KiB and a rank's share of a fiber of the wider axis within
+    the 4096-entry write-back buffer. Forward 1 / 1 / 2 / 4 CTAs and
+    backward 1 / 2 / 4 / 8 at 13 / 14 / 15 / 16 qubits on the balanced
+    split; one CTA at n <= 12."""
+    wide = 1 << max(0, max(plan.hb, plan.lb) - 12)
+    fwd = max(1 << max(0, plan.n - 14), wide)
+    bwd = max(1 << max(0, plan.n - 13), wide)
+
+    def smem(planes: int, c: int) -> int:
+        return 4 * (planes * (1 << plan.n) // c + 2 * _BC_OUT + _BC_TILE_FLOATS)
+
+    return ClusterConfig(fwd, bwd, plan.hb >= plan.lb, smem(2, fwd), smem(4, bwd))
+
+
 def bwd_config(plan: KPlan) -> Tuple[int, int, int]:
-    """(samples per tile, Mct buffers, shared bytes) of one backward CTA
-    (bwd_config in csrc/block_chain.cu): a tile of 2 samples' state and
-    cotangent planes and a double-buffered [K, K] re/im matrix where both
-    blocks are at most 64 wide, else (a 128-wide block at 12 qubits) 1
-    sample and 1 buffer; either fits a CTA's shared memory."""
+    """(samples per tile, Mct buffers, shared bytes) of one backward CTA of
+    the 12q pair (bwd_config in csrc/block_chain.cu): a tile of 2 samples'
+    state and cotangent planes and a double-buffered [K, K] re/im matrix
+    where both blocks are at most 64 wide, else (a 128-wide block at 12
+    qubits) 1 sample and 1 buffer; either fits a CTA's shared memory."""
     km = 1 << max(plan.hb, plan.lb)
     tile = bufs = 2 if km <= 64 else 1
     return tile, bufs, 4 * (4 * tile * (1 << plan.n) + 2 * bufs * km * km)
 
 
 def check_plan(plan: KPlan) -> None:
-    """Raise unless the CUDA kernels can run ``plan``: one sample's state
-    in one CTA (n <= 12, so 256 threads hold 4x4 tiles of [H, L] forward and
-    8 warps its 32x16 tiles backward) and both blocks at least 32 wide (the
-    backward's tensor-core tiles; the forward takes the same plans, so an
-    engine that cannot train is refused when it is built)."""
+    """Raise unless the CUDA kernels can run ``plan``: n <= 16 (a sample in
+    a cluster of at most 8 CTAs) and at most MAX_STEPS steps. Every split
+    of those is taken, by one pair or the other (:func:`uses_cluster_pair`)."""
     if plan.n > MAX_QUBITS:
         raise ValueError(
-            f"block_chain kernels take n <= {MAX_QUBITS} (one sample per "
-            f"CTA in shared memory); got n = {plan.n}"
+            f"block_chain kernels take n <= {MAX_QUBITS} (a sample in a "
+            f"cluster of at most 8 CTAs); got n = {plan.n}"
         )
-    if min(plan.hb, plan.lb) < MIN_BLOCK_BITS:
-        raise ValueError(
-            f"block_chain kernels need both blocks >= {MIN_BLOCK_BITS} qubits; "
-            f"got {plan.hb}/{plan.lb}")
     if len(plan.steps) > MAX_STEPS:
         raise ValueError(f"plan has {len(plan.steps)} steps > {MAX_STEPS}")
 
@@ -370,8 +439,38 @@ def _on_cpu(t: torch.Tensor) -> bool:
     return False
 
 
+_MAX_CLUSTERS = {}
+
+
+def max_clusters(device: torch.device, plan: KPlan, bwd: bool) -> int:
+    """The most clusters of the cluster pair's forward or backward kernel
+    that ``device`` holds at once (cudaOccupancyMaxActiveClusters), asked
+    once per device and shape. Raises where not one fits."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    cfg = cluster_config(plan)
+    c = cfg.bwd_cluster if bwd else cfg.fwd_cluster
+    key = (index, bwd, plan.hb, plan.lb)
+    if key not in _MAX_CLUSTERS:
+        lib = _cluster_lib()
+        out = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            err = lib.qc_block_cluster_max_clusters(
+                int(bwd), plan.hb, plan.lb, c, int(cfg.part_hi), ctypes.byref(out))
+        _raise_on(lib, err, "cudaOccupancyMaxActiveClusters")
+        if out.value < 1:
+            raise RuntimeError(
+                f"no cluster of {c} CTAs with "
+                f"{cfg.bwd_smem if bwd else cfg.fwd_smem} bytes of shared "
+                "memory each fits on the card")
+        _MAX_CLUSTERS[key] = out.value
+    return _MAX_CLUSTERS[key]
+
+
 def block_chain_fwd(xr, xi, m, p, plan: KPlan):
-    """Forward kernel wrapper; same contract as :func:`block_chain_fwd_ref`."""
+    """Forward kernel wrapper; same contract as :func:`block_chain_fwd_ref`.
+    Launches the pair :func:`uses_cluster_pair` picks."""
     if _on_cpu(xr):
         return block_chain_fwd_ref(xr, xi, m, p, plan)
     _check_cuda(plan, (xr, xi), m, p)
@@ -379,13 +478,25 @@ def block_chain_fwd(xr, xi, m, p, plan: KPlan):
     b = xr.shape[0]
     if b == 0:
         return yr, yi
-    lib = _lib()
     steps, _ = _step_table(plan)
+    stream = torch.cuda.current_stream(xr.device).cuda_stream
+    if uses_cluster_pair(plan):
+        lib = _cluster_lib()
+        cfg = cluster_config(plan)
+        err = lib.qc_block_cluster_fwd(
+            xr.data_ptr(), xi.data_ptr(), m.data_ptr(), p.data_ptr(),
+            yr.data_ptr(), yi.data_ptr(), b, plan.hb, plan.lb, cfg.fwd_cluster,
+            int(cfg.part_hi), steps.ctypes.data, len(plan.steps),
+            min(b, max_clusters(xr.device, plan, bwd=False)), stream,
+        )
+        _raise_on(lib, err, "block_cluster_fwd")
+        LAUNCHES["block_cluster_fwd"] += 1
+        return yr, yi
+    lib = _lib()
     err = lib.qc_block_chain_fwd(
         xr.data_ptr(), xi.data_ptr(), m.data_ptr(), p.data_ptr(),
         yr.data_ptr(), yi.data_ptr(), b, 1 << plan.hb, 1 << plan.lb,
-        steps.ctypes.data, len(plan.steps),
-        torch.cuda.current_stream(xr.device).cuda_stream,
+        steps.ctypes.data, len(plan.steps), stream,
     )
     _raise_on(lib, err, "block_chain_fwd")
     LAUNCHES["block_chain_fwd"] += 1
@@ -393,8 +504,8 @@ def block_chain_fwd(xr, xi, m, p, plan: KPlan):
 
 
 def grid_size(device: torch.device, b: int) -> int:
-    """Persistent backward grid: one CTA per SM (its shared memory holds a
-    tile of samples), never more than the batch."""
+    """Persistent backward grid of the 12q pair: one CTA per SM (its shared
+    memory holds a tile of samples), never more than the batch."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(b, sms))
 
@@ -418,26 +529,42 @@ def block_chain_reduce(partials: torch.Tensor) -> torch.Tensor:
 
 
 def block_chain_bwd_partials(yr, yi, gr, gi, mct, p, plan: KPlan):
-    """Backward kernel alone (CUDA tensors only): returns (gxr, gxi,
-    partials [G, slab]); :func:`block_chain_reduce` finishes the batch
-    sums."""
+    """Backward kernel alone (CUDA tensors only), of the pair
+    :func:`uses_cluster_pair` picks: returns (gxr, gxi, partials [G,
+    slab]), one slab per CTA (12q pair) or cluster (cluster pair);
+    :func:`block_chain_reduce` finishes the batch sums."""
     _check_cuda(plan, (yr, yi, gr, gi), mct, p)
     h, l = 1 << plan.hb, 1 << plan.lb
     b = yr.shape[0]
     if b == 0:
         raise ValueError("block_chain_bwd needs a non-empty batch")
-    lib = _lib()
     steps, mats_total = _step_table(plan)
     slab = mats_total + p.numel()
     gxr, gxi = torch.empty_like(yr), torch.empty_like(yi)
+    stream = torch.cuda.current_stream(yr.device).cuda_stream
+    if uses_cluster_pair(plan):
+        lib = _cluster_lib()
+        cfg = cluster_config(plan)
+        g = min(b, max_clusters(yr.device, plan, bwd=True))
+        partials = torch.empty((g, slab), dtype=torch.float32, device=yr.device)
+        err = lib.qc_block_cluster_bwd(
+            yr.data_ptr(), yi.data_ptr(), gr.data_ptr(), gi.data_ptr(),
+            mct.data_ptr(), p.data_ptr(), gxr.data_ptr(), gxi.data_ptr(),
+            partials.data_ptr(), slab, mats_total, b, plan.hb, plan.lb,
+            cfg.bwd_cluster, int(cfg.part_hi), steps.ctypes.data, len(plan.steps),
+            g, stream,
+        )
+        _raise_on(lib, err, "block_cluster_bwd")
+        LAUNCHES["block_cluster_bwd"] += 1
+        return gxr, gxi, partials
+    lib = _lib()
     g = grid_size(yr.device, b)
     partials = torch.empty((g, slab), dtype=torch.float32, device=yr.device)
     err = lib.qc_block_chain_bwd(
         yr.data_ptr(), yi.data_ptr(), gr.data_ptr(), gi.data_ptr(),
         mct.data_ptr(), p.data_ptr(), gxr.data_ptr(), gxi.data_ptr(),
         partials.data_ptr(), slab, mats_total, b, h, l,
-        steps.ctypes.data, len(plan.steps), g,
-        torch.cuda.current_stream(yr.device).cuda_stream,
+        steps.ctypes.data, len(plan.steps), g, stream,
     )
     _raise_on(lib, err, "block_chain_bwd")
     LAUNCHES["block_chain_bwd"] += 1

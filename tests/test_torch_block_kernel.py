@@ -171,19 +171,25 @@ def _one_step_plan(n, hb):
 
 @pytest.mark.parametrize("n,hb,ok", [
     (12, 6, True), (12, 7, True), (10, 5, True), (11, 6, True),
-    (12, 8, False), (12, 2, False), (10, 4, False), (13, 7, False),
+    (12, 8, True), (12, 2, True), (10, 4, True), (13, 7, True),
+    (16, 8, True), (17, 9, False), (17, 1, False),
 ])
 def test_check_plan_limits(n, hb, ok):
-    """The CUDA wrappers refuse a plan the kernels cannot hold: more than
-    12 qubits or a block narrower than 32 (the backward's tensor-core
-    tiles). Uneven splits within the limits are accepted, and their
-    backward fits a CTA's opt-in shared memory on sm_90 (227 KiB)."""
+    """The CUDA wrappers take every split up to 16 qubits and refuse more
+    (a sample in a cluster of at most 8 CTAs). A plan the 12q pair takes
+    (10-12 qubits, both blocks 32-128 wide) fits its backward in a CTA's
+    opt-in shared memory on sm_90 (227 KiB); every other plan goes to the
+    cluster pair, whose CTAs fit it too."""
     plan = _one_step_plan(n, hb)
     if ok:
         bk.check_plan(plan)
-        assert 0 < bk.bwd_config(plan)[2] <= 227 * 1024
+        if bk.uses_cluster_pair(plan):
+            cfg = bk.cluster_config(plan)
+            assert 0 < max(cfg.fwd_smem, cfg.bwd_smem) <= 227 * 1024
+        else:
+            assert 0 < bk.bwd_config(plan)[2] <= 227 * 1024
     else:
-        with pytest.raises(ValueError):
+        with pytest.raises(ValueError, match="n <= 16"):
             bk.check_plan(plan)
 
 

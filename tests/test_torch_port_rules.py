@@ -110,17 +110,26 @@ def test_auto_rule_on_the_card(monkeypatch):
         assert type(eng) is want, n
     ring = DVCircuit(12, 1, "cascade")
     assert type(backends.make_fused_backend(ring)) is BlockFusedCircuit
-    with pytest.raises(ValueError, match="n <= 12"):
-        backends.make_fused_backend(DVCircuit(13, 1, "cross_mesh"), "block_kernel")
+    # block_kernel takes 13-16 qubits on the card when asked for (the
+    # cluster pair); the limit is 16
+    for n in (13, 16):
+        eng = backends.make_fused_backend(DVCircuit(n, 1, "cross_mesh", seed=42),
+                                          "block_kernel")
+        assert type(eng) is bk.BlockKernelCircuit and bk.uses_cluster_pair(eng.plan)
+    with pytest.raises(ValueError, match="n <= 16"):
+        backends.make_fused_backend(DVCircuit(17, 1, "cross_mesh"), "block_kernel")
 
 
 def test_kernel_wrappers_refuse_unsupported_cuda_work():
     """The CUDA-side checks run before any library is loaded."""
-    plan = bk.BlockKernelCircuit(DVCircuit(13, 1, "cross_mesh")).plan
-    x = torch.zeros(2, 1 << plan.hb, 1 << plan.lb)
+    plan = bk.KPlan(17, 9, 8, (bk.KStep("mat", "hi", 0),), ((0, "hi"),), ())
+    x = torch.zeros(2, 1, 1)
     e = torch.zeros(0)
-    with pytest.raises(ValueError, match="n <= 12"):
+    with pytest.raises(ValueError, match="n <= 16"):
         bk._check_cuda(plan, (x, x), e, e)
+    plan13 = bk.BlockKernelCircuit(DVCircuit(13, 1, "cross_mesh", seed=42)).plan
+    with pytest.raises(ValueError, match="CUDA float32"):
+        bk._check_cuda(plan13, (torch.zeros(2, 128, 64),) * 2, e, e)
     plan12 = bk.BlockKernelCircuit(DVCircuit(12, 1, "cross_mesh", seed=42)).plan
     with pytest.raises(ValueError, match="CUDA float32"):
         bk._check_cuda(plan12, (torch.zeros(2, 64, 64),) * 2, e, e)
