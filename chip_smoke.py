@@ -110,8 +110,9 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                at 13 qubits with the same batches: against the plain
                versions (limits as in 4), timed beside the plain versions,
                the complex einsum chain and its autograd backward alone,
-               with the bound at the FP32 peak (the products run on the FP32
-               units), the cluster size, grid, shared memory and registers.
+               with the bound at a third of the TF32 tensor-core peak (the
+               products run in 3xTF32) beside the FP32 SIMT figure, the
+               cluster size, grid, shared memory and registers.
 17. north_star_block the 16q north-star stage 2 on ``--backend
                block_kernel``: one step against the plain block engine
                (limits as in 5); 13 steps of the stage's ``run_steps`` (3
@@ -126,10 +127,11 @@ Phases, each printed as one JSON line; any failure exits non-zero:
 Then the run's seconds, the kernel summary line, the nvidia-smi line, and the
 result line.
 
-Two measurements beside the smoke test, each one JSON line:
+Three measurements beside the smoke test:
 
     python3 chip_smoke.py --stage2-rate TREE   # the 16q stage-2 step of TREE's package
     python3 chip_smoke.py --loop-step-costs    # K5/K6 time per step kind at 16q
+    python3 chip_smoke.py --cluster-kernels    # build, kernel_shapes, cluster_kernels
 """
 
 import json
@@ -146,6 +148,7 @@ TIME_REPS = 20
 FWD_TOL = 2e-5
 BWD_RTOL = 2e-4
 RED_RTOL = 1e-6
+TC_RATE = "a third of the TF32 tensor-core peak (3xTF32)"
 N_QUBITS = 12
 
 # dense FP32 (non-tensor) rate, memory rate and dense TF32 tensor-core rate
@@ -1165,6 +1168,59 @@ def chain_work(bk, plan, b, m, p):
             3 * b * mat + 20 * b * h * l * plan.n_diags, 6 * state + small + slab)
 
 
+def build_phase(names):
+    """Phase ``build``: one nvcc per source, started together; returns
+    cuda_build.build_all's result."""
+    from qcpinn_tpu_torch.ops import cuda_build
+
+    built = cuda_build.build_all(names)
+    emit({"phase": "build", "sources": {
+        f"qcpinn_tpu_torch/ops/csrc/{name}.cu": {
+            "seconds": seconds, "library": os.path.relpath(path),
+            "ptxas": [ln.strip() for ln in report.splitlines()
+                      if "registers" in ln or "spill" in ln]}
+        for name, (path, seconds, report) in built.items()}})
+    return built
+
+
+def kernel_shapes_phase(dev, gen):
+    """Phase ``kernel_shapes``: every BLOCK_SHAPES row through both
+    block-chain wrappers against the plain versions (check_block)."""
+    from qcpinn_tpu_torch.ops import block_kernel as bk
+    from qcpinn_tpu_torch.ops.circuit import DVCircuit
+
+    shape_errs = {}
+    for n, layers, hb, b in BLOCK_SHAPES:
+        eng = bk.BlockKernelCircuit(
+            DVCircuit(n, layers, "cross_mesh", seed=42 if n >= 7 else None), hi_bits=hb)
+        tag = f"n{n}_hb{eng.plan.hb}_layers{layers}_B{b}"
+        shape_errs[tag] = {**check_block(bk, eng, b, gen, dev, tag),
+                           **block_launch(bk, eng.plan)}
+    emit({"phase": "kernel_shapes", "tol": {"fwd_abs": FWD_TOL, "bwd": f"{BWD_RTOL}*max|ref|"},
+          "results": shape_errs})
+
+
+def cluster_kernels():
+    """``--cluster-kernels``: build the block-chain sources, then the
+    kernel_shapes and cluster_kernels phases alone (the cluster pair at
+    every shape, and its times at 13 and 16 qubits)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import qcpinn_tpu_torch  # noqa: F401  (sets TF32 off)
+
+    dev = torch.device("cuda")
+    smi = nvidia_smi_line()
+    built = build_phase(["block_chain", "block_chain_cluster"])
+    gen = torch.Generator(device=dev).manual_seed(7)
+    kernel_shapes_phase(dev, gen)
+    cluster_phase(dev, gen, peaks(torch.cuda.get_device_name(0)), smi,
+                  ptxas_registers(built["block_chain_cluster"][2]))
+    print(smi, flush=True)
+
+
 def cluster_phase(dev, gen, card_peaks, smi, registers):
     """Phase ``cluster_kernels``; returns its results by (n, B)."""
     import torch
@@ -1190,8 +1246,11 @@ def cluster_phase(dev, gen, card_peaks, smi, registers):
             ph_c = [torch.complex(a, c) for a, c in phases]
             xc = torch.complex(xr, xi)
             f_ops, f_bytes, b_ops, b_bytes = chain_work(bk, plan, b, m, p)
-            fb, fby = bound(f_ops, f_bytes, card_peaks)
-            bb, bby = bound(b_ops, b_bytes, card_peaks)
+            # the products run on tensor cores in 3xTF32: three TF32 passes
+            # per f32 product
+            tc = card_peaks[2] / 3
+            fb, fby = bound(f_ops, f_bytes, card_peaks, flop_rate=tc)
+            bb, bby = bound(b_ops, b_bytes, card_peaks, flop_rate=tc)
             reps = 5 if n == 16 else TIME_REPS
             row = {"fwd": {
                 "max_abs_err": errs["fwd_abs"], "tol": FWD_TOL,
@@ -1200,7 +1259,8 @@ def cluster_phase(dev, gen, card_peaks, smi, registers):
                                     reps=5),
                 "library_ms": time_ms(lambda: lib_chain(plan, xc, mats_c, ph_c), reps=reps),
                 "library": "the complex einsum chain (cuBLAS, TF32 off)",
-                "bound_ms": fb, "bound_by": fby, "bound_rate": "FP32 SIMT peak",
+                "bound_ms": fb, "bound_by": fby, "bound_rate": TC_RATE,
+                "bound_fp32_ms": bound(f_ops, f_bytes, card_peaks)[0],
                 "cluster": cfg.fwd_cluster, "smem_per_cta": cfg.fwd_smem,
                 "grid_clusters": min(b, bk.max_clusters(dev, plan, bwd=False)),
                 "registers": registers.get("block_cluster_fwd_kernel"),
@@ -1222,7 +1282,8 @@ def cluster_phase(dev, gen, card_peaks, smi, registers):
                     y_lib, [xg, *mg, *pg], grad_outputs=gc, retain_graph=True),
                     reps=reps),
                 "library": "autograd backward alone of the complex einsum chain",
-                "bound_ms": bb, "bound_by": bby, "bound_rate": "FP32 SIMT peak",
+                "bound_ms": bb, "bound_by": bby, "bound_rate": TC_RATE,
+                "bound_fp32_ms": bound(b_ops, b_bytes, card_peaks)[0],
                 "cluster": cfg.bwd_cluster, "smem_per_cta": cfg.bwd_smem,
                 "grid_clusters": partials.shape[0],
                 "registers": registers.get("block_cluster_bwd_kernel"),
@@ -1382,13 +1443,14 @@ def main():
         return stage2_rate(sys.argv[2])
     if sys.argv[1:] == ["--loop-step-costs"]:
         return loop_step_costs()
+    if sys.argv[1:] == ["--cluster-kernels"]:
+        return cluster_kernels()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import qcpinn_tpu_torch  # noqa: F401  (sets TF32 off)
     from qcpinn_tpu_torch import bench
     from qcpinn_tpu_torch.ops import block_kernel as bk
-    from qcpinn_tpu_torch.ops import cuda_build
     from qcpinn_tpu_torch.ops.circuit import DVCircuit
 
     dev = torch.device("cuda")
@@ -1409,26 +1471,12 @@ def main():
     card_peaks = peaks(name)
 
     # -- 2. build ----------------------------------------------------------
-    built = cuda_build.build_all(["block_chain", "block_chain_cluster", "gate_loop",
-                                  "unrolled_sv"])
-    emit({"phase": "build", "sources": {
-        f"qcpinn_tpu_torch/ops/csrc/{name}.cu": {
-            "seconds": seconds, "library": os.path.relpath(path),
-            "ptxas": [ln.strip() for ln in report.splitlines()
-                      if "registers" in ln or "spill" in ln]}
-        for name, (path, seconds, report) in built.items()}})
+    built = build_phase(["block_chain", "block_chain_cluster", "gate_loop",
+                         "unrolled_sv"])
 
     # -- 3. every configuration of the block-chain kernels -------------------
     gen = torch.Generator(device=dev).manual_seed(7)
-    shape_errs = {}
-    for n, layers, hb, b in BLOCK_SHAPES:
-        eng = bk.BlockKernelCircuit(
-            DVCircuit(n, layers, "cross_mesh", seed=42 if n >= 7 else None), hi_bits=hb)
-        tag = f"n{n}_hb{eng.plan.hb}_layers{layers}_B{b}"
-        shape_errs[tag] = {**check_block(bk, eng, b, gen, dev, tag),
-                           **block_launch(bk, eng.plan)}
-    emit({"phase": "kernel_shapes", "tol": {"fwd_abs": FWD_TOL, "bwd": f"{BWD_RTOL}*max|ref|"},
-          "results": shape_errs})
+    kernel_shapes_phase(dev, gen)
     k4b_before = k4b_probe(dev, gen, "before the 16q phases")
 
     # -- 4. kernels vs plain versions at the main path's shapes ------------
@@ -1538,7 +1586,7 @@ def main():
             "library_ms": time_ms(lib_bwd),
             "library": "autograd backward alone of the complex einsum chain",
             "bound_ms": bb, "bound_by": bby,
-            "bound_rate": "a third of the TF32 tensor-core peak (3xTF32)",
+            "bound_rate": TC_RATE,
             # the same work on the FP32 SIMT units, as the kernel before
             # the tensor cores ran it
             "bound_fp32_ms": bound(bwd_flops, bwd_bytes, card_peaks)[0],
@@ -1632,8 +1680,8 @@ def main():
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "batch": LOOP_BATCHES[0], "n_qubits": 16,
-            **{key: r[key] for key in ("bound_rate", "cluster", "smem_per_cta",
-                                       "registers", "grid_clusters")},
+            **{key: r[key] for key in ("bound_rate", "bound_fp32_ms", "cluster",
+                                       "smem_per_cta", "registers", "grid_clusters")},
             "by_shape": by_b,
         })
     kernels += loop_results + unrolled_results

@@ -20,7 +20,9 @@ hand in CUDA for Hopper (sm_90a), share one slab reduction:
   with n <= 16 at any hi/lo split (:func:`uses_cluster_pair`): one sample
   is held by a thread-block cluster of 1 to 8 CTAs, split along the wider
   axis, read across ranks through distributed shared memory
-  (:func:`cluster_config`); its products are a tiled FP32 GEMM that pads a
+  (:func:`cluster_config`); its products are one tiled complex GEMM on the
+  tensor cores in 3xTF32, as K2's, whose operand slabs producer warps stage
+  into two shared buffers while consumer warps multiply, and it pads a
   block narrower than a tile with zeros.
 
 The matrix and phase cotangents are batch sums: each CTA (12q pair) or
@@ -351,10 +353,10 @@ def uses_cluster_pair(plan: KPlan) -> bool:
     return not (10 <= plan.n <= 12 and min(plan.hb, plan.lb) >= 5)
 
 
-# the cluster pair's buffers (csrc/block_chain_cluster.cu): BC_OUT complex
-# entries of write-back buffer, 4 staged tiles of BC_TP x (BC_TMAX + 1)
-_BC_OUT = 4096
-_BC_TILE_FLOATS = 4 * 8 * 257
+# the cluster pair's GEMM buffers (csrc/block_chain_cluster.cu): two staged
+# slabs of BC_STAGE floats, the second shared with the 4096-entry complex
+# write-back buffer
+_BC_STAGE_FLOATS = 2 * 12288
 
 
 @dataclasses.dataclass(frozen=True)
@@ -384,7 +386,7 @@ def cluster_config(plan: KPlan) -> ClusterConfig:
     bwd = max(1 << max(0, plan.n - 13), wide)
 
     def smem(planes: int, c: int) -> int:
-        return 4 * (planes * (1 << plan.n) // c + 2 * _BC_OUT + _BC_TILE_FLOATS)
+        return 4 * (planes * (1 << plan.n) // c + _BC_STAGE_FLOATS)
 
     return ClusterConfig(fwd, bwd, plan.hb >= plan.lb, smem(2, fwd), smem(4, bwd))
 

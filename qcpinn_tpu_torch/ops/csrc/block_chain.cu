@@ -23,8 +23,9 @@
 // step's input, form the matrix cotangent, pull the cotangent back) on the
 // tensor cores in 3xTF32: each f32 operand splits into a TF32 high part
 // and a TF32 low part of the remainder, and hi*hi + hi*lo + lo*hi
-// accumulate in f32 (mma.sync m16n8k8), which keeps the f32 parity the
-// port is held to (a single TF32 pass would not). It sweeps the plan in
+// accumulate in f32 (mma.sync m16n8k8; tf32_mma.cuh, shared with the
+// cluster pair), which keeps the f32 parity the port is held to (a single
+// TF32 pass would not). It sweeps the plan in
 // reverse from the final state with O(1) state memory: the matrices
 // arrive conj-transposed (Mct = conj(M)^T), and one contraction with Mct
 // both recovers the step's input and pulls the cotangent back. A CTA takes
@@ -49,6 +50,8 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include "tf32_mma.cuh"
 
 #define QC_MAX_STEPS 128
 #define QC_THREADS 256
@@ -223,41 +226,13 @@ __device__ __forceinline__ int sidx(int r, int c, int W) {
     return r * W + (c ^ swz(r));
 }
 
-// x = hi + lo + O(2^-22 |x|): hi is x rounded to TF32, lo the remainder
-// rounded to TF32.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-    asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
-    const float rest = x - __uint_as_float(hi);
-    asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(rest));
-}
-
-__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4],
-                                         const uint32_t b[2]) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c += a * b in 3xTF32: the two small cross terms first, then hi * hi.
-__device__ __forceinline__ void mma3(float c[4], const uint32_t ah[4],
-                                     const uint32_t al[4], const uint32_t bh[2],
-                                     const uint32_t bl[2]) {
-    mma_tf32(c, al, bh);
-    mma_tf32(c, ah, bl);
-    mma_tf32(c, ah, bh);
-}
-
 // The products below step through the contracted index p = p1 + kk + r
 // (p1 a multiple of 32, kk a multiple of 8 below 32, r < 8), so that the
 // swizzle of a fragment element (it touches bits 2..4 of a column only)
 // is an XOR of kk with a loop-invariant row or column. The k-steps stay
 // rolled (unroll 1): unrolling them four times raised the backward to 211
 // registers and made it 25% slower than rolled (167). Fragments follow
-// mma.m16n8k8's layout: with g = lane / 4, t = lane % 4, A holds rows g,
-// g + 8 and columns t, t + 4; B rows t, t + 4 and column g; C rows g, g + 8
-// and columns 2t, 2t + 1.
+// mma.m16n8k8's layout (tf32_mma.cuh).
 
 // One k-step's A fragment of a warp's 32-row tile at m0, columns p1 + kk
 // .. + 7 (p1 a multiple of 32), split into TF32 hi / lo: [re/im][mt][q].
@@ -304,27 +279,6 @@ __device__ __forceinline__ void frag_b(const float* __restrict__ br,
         }
 }
 
-// acc[mt][nt][re/im] += A * B of one k-step, complex, in 3xTF32.
-__device__ __forceinline__ void mma_step(float acc[2][2][2][4],
-                                         const uint32_t ah[2][2][4],
-                                         const uint32_t al[2][2][4],
-                                         const uint32_t bh[2][2][2],
-                                         const uint32_t bl[2][2][2]) {
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-        // -B_im, exactly (the sign bit of a TF32 pattern)
-        const uint32_t nh[2] = {bh[1][nt][0] ^ 0x80000000u, bh[1][nt][1] ^ 0x80000000u};
-        const uint32_t nl[2] = {bl[1][nt][0] ^ 0x80000000u, bl[1][nt][1] ^ 0x80000000u};
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-            mma3(acc[mt][nt][0], ah[0][mt], al[0][mt], bh[0][nt], bl[0][nt]);
-            mma3(acc[mt][nt][0], ah[1][mt], al[1][mt], nh, nl);
-            mma3(acc[mt][nt][1], ah[0][mt], al[0][mt], bh[1][nt], bl[1][nt]);
-            mma3(acc[mt][nt][1], ah[1][mt], al[1][mt], bh[0][nt], bl[0][nt]);
-        }
-    }
-}
-
 // One warp's 32x16 complex tile at (m0, n0): acc[mt][nt][re/im][4] +=
 // sum_{p < P} opA(A)(m, p) * B(p, n) (frag_a, frag_b); P a multiple of 32.
 template <bool A_T, bool B_T, bool CONJ_A>
@@ -341,17 +295,6 @@ __device__ __forceinline__ void cgemm_warp(
             mma_step(acc, ah, al, bh, bl);
         }
     }
-}
-
-__device__ __forceinline__ void zero_acc(float acc[2][2][2][4]) {
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-            for (int c = 0; c < 2; ++c)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) acc[mt][nt][c][e] = 0.f;
 }
 
 // Write a warp's tile at (m0, n0) into swizzled (outr, outi), row length W.
@@ -393,20 +336,6 @@ __device__ __forceinline__ void add_tile(float* pr, float* pi, int K, int m0,
                 *reinterpret_cast<float2*>(pr + e) = r;
                 *reinterpret_cast<float2*>(pi + e) = i;
             }
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-    const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // Start copying a packed [K][K] re / im pair into swizzled shared rows.

@@ -184,3 +184,160 @@ def test_dispatch_rule_and_cluster_sizing(n):
         cfg = bk.cluster_config(bal)
         assert (cfg.fwd_cluster, cfg.bwd_cluster) == {
             13: (1, 1), 14: (1, 2), 15: (2, 4), 16: (4, 8)}[n]
+
+
+
+def test_cluster_smem_mirrors_the_cuda_source():
+    """cluster_config's shared bytes a CTA are the CUDA launch_config's
+    (bc_floats: the state planes and two staged slabs of BC_STAGE floats,
+    the write-back buffer inside the second), and the slabs hold the
+    write-back buffer and the deepest slab of the widest tile."""
+    import os
+    import re
+
+    src = open(os.path.join(os.path.dirname(bk.__file__), "csrc",
+                            "block_chain_cluster.cu")).read()
+    consts = {k: int(v) for k, v in re.findall(r"#define (BC_\w+) (\d+)", src)}
+    assert "return (size_t)planes * NL + 2 * BC_STAGE;" in src
+    assert bk._BC_STAGE_FLOATS == 2 * consts["BC_STAGE"]
+    assert consts["BC_STAGE"] >= 2 * consts["BC_OUT"]
+    # the widest tile's slab (rows padded by 8) is at least one k-step deep
+    widest = consts["BC_TMAX"] + consts["BC_TILE"] // consts["BC_TMAX"] + 16
+    assert consts["BC_STAGE"] // (2 * widest) >= 8
+    plan = bk.BlockKernelCircuit(TCircuit(16, 1, "cross_mesh", seed=42)).plan
+    cfg = bk.cluster_config(plan)
+    for c, planes, smem in ((cfg.fwd_cluster, 2, cfg.fwd_smem),
+                            (cfg.bwd_cluster, 4, cfg.bwd_smem)):
+        assert smem == 4 * (planes * (1 << 16) // c + 2 * consts["BC_STAGE"]) <= 232448
+
+
+# -- the cluster pair's arithmetic: 3xTF32 on the tensor cores ------------------
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32: keep 10 mantissa bits, rounded to nearest with
+    ties away from zero (half an ulp added to the magnitude)."""
+    u = x.contiguous().numpy().view(np.uint32)
+    r = (u & np.uint32(0x80000000)) | (((u & np.uint32(0x7FFFFFFF)) + np.uint32(0x1000))
+                                       & np.uint32(0xFFFFE000))
+    return torch.from_numpy(r.view(np.float32))
+
+
+def _mm3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a^T b of f32 [.., P, I] and [.., P, J] in 3xTF32: each operand split
+    into a TF32 high part and a TF32 low part of the remainder, lo*hi +
+    hi*lo + hi*hi accumulated in f32, as the kernel's mma3 does."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    t = lambda x, y: x.transpose(-1, -2) @ y  # noqa: E731
+    return (t(al, bh) + t(ah, bl)) + t(ah, bh)
+
+
+def _cgemm3(ar, ai, br, bi):
+    """The kernel's tile GEMM, acc(i, j) = sum_p A(p, i) B(p, j), complex:
+    operands zero-padded to whole warp tiles and k-steps (I and J to 32,
+    P to 8), the four real products in 3xTF32 (-B_im exact), the padded
+    outputs dropped."""
+    p, i, j = ar.shape[-2], ar.shape[-1], br.shape[-1]
+
+    def pad(x):
+        return torch.nn.functional.pad(x, (0, -x.shape[-1] % 32, 0, -p % 8))
+
+    ar, ai, br, bi = pad(ar), pad(ai), pad(br), pad(bi)
+    re = _mm3(ar, br) + _mm3(ai, -bi)
+    im = _mm3(ar, bi) + _mm3(ai, br)
+    return re[..., :i, :j], im[..., :i, :j]
+
+
+def _contract3(sr, si, mr, mi, axis):
+    """_contract in the kernel's arithmetic: out(x, y) = sum_k M[k][x]
+    s(k, y), x along the stepped axis."""
+    if axis == "hi":  # s(k, y) = s[b, k, l]
+        return _cgemm3(mr, mi, sr, si)
+    re, im = _cgemm3(mr, mi, sr.transpose(1, 2), si.transpose(1, 2))
+    return re.transpose(1, 2), im.transpose(1, 2)
+
+
+def _chain_3xtf32(plan, xr, xi, gr, gi, m, p):
+    """block_chain_fwd_ref, then block_chain_bwd_ref's sweep from its output,
+    with every product (contractions and dM) in the kernel's arithmetic."""
+    mats, phases = bk.unpack(plan, m, p)
+    sr, si = xr, xi
+    for st in plan.steps:
+        if st.kind == "mat":
+            sr, si = _contract3(sr, si, *mats[st.idx], st.axis)
+        else:
+            c, s = phases[st.idx]
+            sr, si = sr * c - si * s, sr * s + si * c
+    yr, yi = sr, si
+    matcts, _ = bk.unpack(plan, bk.conj_transpose(plan, m), p)
+    qr, qi = gr, gi
+    gmats, gphases = [None] * plan.n_mats, [None] * plan.n_diags
+    for st in reversed(plan.steps):
+        if st.kind == "mat":
+            mtr, mti = matcts[st.idx]
+            sr, si = _contract3(sr, si, mtr, mti, st.axis)
+            # dM[k][m] = sum_y conj s(k, y) g(m, y), a sample at a time
+            if st.axis == "hi":  # y along l: A(p = l, i = k)
+                a, b = (sr.transpose(1, 2), si.transpose(1, 2)), (qr.transpose(1, 2),
+                                                                   qi.transpose(1, 2))
+            else:
+                a, b = (sr, si), (qr, qi)
+            dr, di = _cgemm3(a[0], -a[1], *b)
+            gmats[st.idx] = (dr.sum(0), di.sum(0))
+            qr, qi = _contract3(qr, qi, mtr, mti, st.axis)
+        else:
+            c, s = phases[st.idx]
+            sr, si = c * sr + s * si, c * si - s * sr
+            gphases[st.idx] = (torch.sum(qr * sr + qi * si, dim=0),
+                               torch.sum(-qr * si + qi * sr, dim=0))
+            qr, qi = c * qr + s * qi, c * qi - s * qr
+    return (yr, yi), (qr, qi, bk._pack(gmats), bk._pack(gphases))
+
+
+@pytest.mark.parametrize("n,hb", [(16, None), (4, 1)])
+def test_3xtf32_products_hold_the_chain_limits(n, hb):
+    """The cluster pair's arithmetic, emulated on the CPU: every product of
+    the chain (K = 256 at 16 qubits) and of its reverse sweep in 3xTF32,
+    on JAX's plan and JAX's packed matrices and phases (build_plan,
+    _block_unitary), stays within the limits the kernels are held to
+    against the plain versions: 2e-5 absolute forward on unit-norm states,
+    2e-4 * max|ref| per backward output. n = 4 with hb = 1 pads a 2-wide
+    block up to whole MMA tiles."""
+    jeng = bp.BlockPallasCircuit(JCircuit(n, 1, "cross_mesh", seed=_seed(n)), hi_bits=hb,
+                                 interpret=True)
+    eng = bk.BlockKernelCircuit(TCircuit(n, 1, "cross_mesh", seed=_seed(n)), hi_bits=hb)
+    plan, jplan = eng.plan, jeng.plan
+    assert [(s.kind, s.axis, s.idx) for s in plan.steps] == [
+        (s.kind, s.axis, s.idx) for s in jplan.steps]
+    assert bk.uses_cluster_pair(plan)
+    rng = np.random.default_rng(100 + n)
+    params = rng.normal(scale=0.3, size=eng.circuit.num_params).astype(np.float32)
+    p2 = jnp.asarray(params).reshape(eng.circuit.layers, -1)
+    mats, phases = [], []
+    for si, axis in jplan.mat_srcs:
+        seg = jeng.segments[si]
+        bits, prog = (plan.hb, seg.hi_prog) if axis == "hi" else (plan.lb, seg.lo_prog)
+        u = np.asarray(j_block_unitary(bits, prog, p2[seg.layer]))
+        mats.append((u.real, u.imag))
+    for si in jplan.diag_srcs:
+        seg = jeng.segments[si]
+        phi = np.asarray(seg.run.phases(p2[seg.layer])).reshape(1 << plan.hb, 1 << plan.lb)
+        phases.append((np.cos(phi), np.sin(phi)))
+    m = bk._pack([tuple(torch.tensor(a, dtype=torch.float32) for a in pr) for pr in mats])
+    p = bk._pack([tuple(torch.tensor(a, dtype=torch.float32) for a in pr)
+                  for pr in phases])
+    b, h, l = 2, 1 << plan.hb, 1 << plan.lb
+    st = _unit_states(rng, b, n).reshape(b, h, l)
+    xr, xi = (torch.as_tensor(np.ascontiguousarray(a)) for a in (st.real, st.imag))
+    gr, gi = (torch.as_tensor(rng.normal(size=(b, h, l)).astype(np.float32))
+              for _ in range(2))
+
+    (yr, yi), bwd = _chain_3xtf32(plan, xr, xi, gr, gi, m, p)
+    ref_y = bk.block_chain_fwd_ref(xr, xi, m, p, plan)
+    ref = bk.block_chain_bwd_ref(*ref_y, gr, gi, bk.conj_transpose(plan, m), p, plan)
+    for got, want in zip((yr, yi), ref_y):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=2e-5)
+    for got, want in zip(bwd, ref):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                   atol=2e-4 * want.abs().max().item())
