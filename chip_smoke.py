@@ -18,17 +18,26 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                buffer); the cluster pair at n = 2, 3, 4, 8, 9 (blocks 2-16
                wide), n = 4 at hb 1 and 3, n = 10 at hb 7, n = 12 at hb 2
                and 8, and 13, 14, 15, 16 qubits (clusters of 1-8 CTAs), B = 37.
-3b. k4b_probe  K3, K4 and K4b (and torch.sum over K4b's slabs) at the 8q
+3a. slab_sums  the three slab reductions (K2b, K6b, K4b), one header
+               (ops/csrc/slab_sum.cuh), at edge shapes of both its forms
+               (SLAB_SHAPES), each bit-equal to its plain version.
+3b. launch_floor an empty kernel (LAUNCH_FLOOR_CU, built here) in the graph
+               timer: the least a graphed kernel node costs on this card.
+3c. k4b_probe  K3, K4 and K4b (and torch.sum over K4b's slabs) at the 8q
                stream batch, timed here, before the 16q phases, and again
                after them (the same function, ``when`` says which).
 4. kernels     every block-chain kernel at the 12q main path's shapes
                (B = 6144 stream rows and B = 682 value rows) against its
                plain PyTorch version on the same inputs: forward <= 2e-5
                (unit-norm states), backward <= 2e-4 * max|ref| per output,
-               reduction <= 1e-6 * max|ref|. Times from CUDA events (median);
-               K2's bound at a third of the TF32 tensor-core peak
-               (3xTF32, what it runs on), beside its FP32 SIMT bound, its
-               registers and shared memory.
+               reduction bit-equal (both add slab 0, 1, ..., G-1 in order).
+               Times from CUDA events (median of single calls, the
+               wrapper's host side included: ``ms``) and, for every row
+               under 1 ms and every reduction, from a CUDA graph of 20
+               calls (``graph_ms``: the card's time); K2's bound at a
+               third of the TF32 tensor-core peak (3xTF32, what it runs
+               on), beside its FP32 SIMT bound, its registers and shared
+               memory.
 5. step_parity one 12-qubit train step through the kernels against the same
                step on the plain block engine: same params, same points; loss
                rtol 2e-5, every grad atol 2e-4 * max(|ref|, 1e-3).
@@ -124,14 +133,16 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                process, in turns (block_kernel, loop, loop, block_kernel),
                and a torch.profiler window of each.
 
-Then the run's seconds, the kernel summary line, the nvidia-smi line, and the
-result line.
+Every reduction row (phases 4, 8, 12, 16) has ``graph_ms``, torch.sum's
+``library_graph_ms``, its bound and the launch floor. Then the run's
+seconds, the kernel summary line, the nvidia-smi line, and the result line.
 
-Three measurements beside the smoke test:
+Four measurements beside the smoke test:
 
     python3 chip_smoke.py --stage2-rate TREE   # the 16q stage-2 step of TREE's package
     python3 chip_smoke.py --loop-step-costs    # K5/K6 time per step kind at 16q
     python3 chip_smoke.py --cluster-kernels    # build, kernel_shapes, cluster_kernels
+    python3 chip_smoke.py --slab-sum-rates TREE  # TREE's slab sums, graph-timed
 """
 
 import json
@@ -145,9 +156,11 @@ import time
 
 STEPS = 30
 TIME_REPS = 20
+GRAPH_REPLAYS = 7
+GRAPH_BELOW_MS = 1.0  # rows timed by events under this are graph-timed too
+GRAPH_KEYS = ("graph_ms", "library_graph_ms", "library_timer", "launch_floor_ms")
 FWD_TOL = 2e-5
 BWD_RTOL = 2e-4
-RED_RTOL = 1e-6
 TC_RATE = "a third of the TF32 tensor-core peak (3xTF32)"
 N_QUBITS = 12
 
@@ -196,6 +209,162 @@ def time_ms(fn, reps=TIME_REPS):
         b.synchronize()
         ts.append(a.elapsed_time(b))
     return statistics.median(ts)
+
+
+def graph_ms(fn, reps=TIME_REPS):
+    """The card's ms for one call of ``fn``: 3 warm-up calls, then ``reps``
+    calls captured in one CUDA graph, the graph replayed GRAPH_REPLAYS
+    times, each replay between two CUDA events; the median replay over
+    ``reps``. No host work lies between the events (``time_ms`` times the
+    wrapper's host side too), so a launch costs only its graph node: the
+    launch_floor phase says how much that is."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(GRAPH_REPLAYS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b) / reps)
+    del graph
+    return statistics.median(ts)
+
+
+def timed(fn, reps=TIME_REPS, prefix="", capturable=True):
+    """``{prefix}ms`` from CUDA events (``time_ms``) and, where that is
+    under GRAPH_BELOW_MS, ``{prefix}graph_ms`` (``graph_ms``); a call that
+    cannot be captured (an autograd backward, whose graph was recorded on
+    another stream) keeps its event time only, marked so."""
+    row = {f"{prefix}ms": time_ms(fn, reps)}
+    if row[f"{prefix}ms"] < GRAPH_BELOW_MS:
+        if capturable:
+            row[f"{prefix}graph_ms"] = graph_ms(fn)
+        else:
+            row[f"{prefix}graph_ms"] = None
+            row[f"{prefix}timer"] = "CUDA events only: autograd's backward is not captured"
+    return row
+
+
+def reduce_row(wrapper, ref, partials, card_peaks, floor):
+    """A slab reduction against its plain version on ``partials`` [G,
+    slab]: bit-equal (both add slab 0, 1, ..., G-1 in order), timed by
+    events and by graph beside ``torch.sum(partials, 0)``, with the bound
+    (G + 1 slabs moved) and the launch floor."""
+    import torch
+
+    got, want = wrapper(partials), ref(partials)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise SystemExit(f"{wrapper.__name__} {list(partials.shape)}: not bit-equal to "
+                         f"its plain version (max abs err {(got - want).abs().max().item()})")
+    g, slab = partials.shape
+    rb, rby = bound(g * slab, 4 * (g + 1) * slab, card_peaks)
+    return {
+        "max_abs_err": 0.0, "tol": "bit-equal", "shape": [g, slab],
+        "ms": time_ms(lambda: wrapper(partials)),
+        "graph_ms": graph_ms(lambda: wrapper(partials)),
+        "plain_ms": time_ms(lambda: ref(partials), reps=5),
+        "library_ms": time_ms(lambda: torch.sum(partials, dim=0)),
+        "library_graph_ms": graph_ms(lambda: torch.sum(partials, dim=0)),
+        "bound_ms": rb, "bound_by": rby, "launch_floor_ms": floor,
+    }
+
+
+# (G, slab, offset): one slab; slabs of 1 to 4099 floats (the lanes form:
+# tiles of 1 to 16 columns) with G under, at and past one round of rows and
+# not a multiple of the 8 rows the adder reads ahead; a slab just past the
+# per-element form's threshold, its last CTA ragged; partials one float
+# into their allocation
+SLAB_SHAPES = ((1, 4096, 0), (2, 3, 0), (15, 4099, 0), (17, 100, 0), (33, 1, 0),
+               (132, 4096, 0), (300, 777, 0), (3, 40001, 0), (5, 4096, 1))
+
+
+def slab_sum_phase(dev, gen):
+    """Phase ``slab_sums``: the three slab reductions (K2b, K6b, K4b) at
+    SLAB_SHAPES, each bit-equal to its plain version."""
+    import torch
+
+    from qcpinn_tpu_torch.ops import block_kernel as bk
+    from qcpinn_tpu_torch.ops import loop_kernel as lk
+    from qcpinn_tpu_torch.ops import sv_kernel as sk
+
+    pairs = ((bk.block_chain_reduce, bk.block_chain_reduce_ref),
+             (lk.gate_loop_reduce, lk.gate_loop_reduce_ref),
+             (sk.unrolled_reduce, sk.unrolled_reduce_ref))
+    rows = []
+    for g, slab, off in SLAB_SHAPES:
+        flat = torch.randn(off + g * slab, generator=gen, device=dev)
+        partials = flat[off:].view(g, slab)
+        for wrapper, ref in pairs:
+            got, want = wrapper(partials), ref(partials)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise SystemExit(f"slab_sums {wrapper.__name__} G={g} slab={slab} "
+                                 f"offset={off}: not bit-equal to its plain version")
+        rows.append([g, slab, off])
+    emit({"phase": "slab_sums", "tol": "bit-equal", "shapes_g_slab_offset": rows,
+          "kernels": [w.__name__ for w, _ in pairs]})
+
+
+# an empty kernel and its launcher, built by launch_floor_phase alone: no
+# path of the port runs it
+LAUNCH_FLOOR_CU = r"""
+extern "C" __global__ void launch_floor_kernel() {}
+extern "C" int qc_launch_floor(void* stream) {
+    launch_floor_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
+    return (int)cudaGetLastError();
+}
+"""
+
+
+def launch_floor_phase():
+    """Phase ``launch_floor``: an empty kernel (one CTA of 32 threads,
+    LAUNCH_FLOOR_CU built with the port's nvcc flags into the git-ignored
+    build directory) in the graph timer, the least a graphed kernel node
+    costs on this card, and in the event timer beside it."""
+    import ctypes
+
+    import torch
+
+    from qcpinn_tpu_torch.ops import cuda_build
+
+    os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
+    src = os.path.join(cuda_build.BUILD_DIR, "launch_floor.cu")
+    lib_path = os.path.join(cuda_build.BUILD_DIR, "launch_floor.so")
+    with open(src, "w") as f:
+        f.write(LAUNCH_FLOOR_CU)
+    done = subprocess.run([cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-o", lib_path, src],
+                          capture_output=True, text=True)
+    if done.returncode:
+        raise SystemExit(f"launch_floor: nvcc failed:\n{done.stderr}")
+    lib = ctypes.CDLL(lib_path)
+    lib.qc_launch_floor.argtypes = [ctypes.c_void_p]
+    lib.qc_launch_floor.restype = ctypes.c_int
+
+    def empty():
+        err = lib.qc_launch_floor(torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise SystemExit(f"launch_floor: CUDA error {err}")
+
+    row = {"phase": "launch_floor", "graph_ms": graph_ms(empty), "ms": time_ms(empty)}
+    emit(row)
+    return row["graph_ms"]
 
 
 def bound(flops, nbytes, card_peaks, flop_rate=None):
@@ -386,9 +555,10 @@ def ptxas_registers(report: str):
     return regs
 
 
-def loop_phases(dev, gen, card_peaks, smi, registers):
+def loop_phases(dev, gen, card_peaks, smi, registers, floor):
     """Phases 7-10; returns the K5/K6/reduction rows of the summary line.
-    ``registers``: ptxas's count per kernel of gate_loop.cu."""
+    ``registers``: ptxas's count per kernel of gate_loop.cu; ``floor``: the
+    launch floor (ms)."""
     import torch
 
     from qcpinn_tpu_torch import bench, north_star as ns
@@ -428,9 +598,9 @@ def loop_phases(dev, gen, card_peaks, smi, registers):
             fb, fby = bound(f_ops, 4 * 4 * b * d + bank_bytes, card_peaks)
             per_kernel["gate_loop_fwd"][b] = {
                 "max_abs_err": errs["fwd_abs"], "tol": LOOP_FWD_TOL,
-                "ms": time_ms(lambda: lk.gate_loop_fwd(xr, xi, *banks, lp)),
+                **timed(lambda: lk.gate_loop_fwd(xr, xi, *banks, lp)),
                 "plain_ms": time_ms(lambda: lk.loop_fwd_ref(xr, xi, *banks, lp), reps=5),
-                "library_ms": time_ms(lambda: run_chain(ops, xc), reps=10),
+                **timed(lambda: run_chain(ops, xc), reps=10, prefix="library_"),
                 "library": "the block engine's complex einsum chain, matrices "
                            "and phases built once (cuBLAS, TF32 off)",
                 "bound_ms": fb, "bound_by": fby, "cluster": shape["cluster"],
@@ -439,12 +609,6 @@ def loop_phases(dev, gen, card_peaks, smi, registers):
             }
         out_bytes = 4 * (banks[0].numel() + 2 * banks[2].numel())
         gxr, gxi, partials = lk.gate_loop_bwd_partials(*y, gr, gi, *banks, lp)
-        red = lk.gate_loop_reduce(partials)
-        red_ref = lk.gate_loop_reduce_ref(partials)
-        torch.cuda.synchronize()
-        red_err = (red - red_ref).abs().max().item()
-        if not red_err <= RED_RTOL * red_ref.abs().max().item():
-            raise SystemExit(f"gate_loop_reduce B={b}: err {red_err}")
         bb, bby = bound(b_ops, 4 * 6 * b * d + bank_bytes + out_bytes, card_peaks)
         # the library's backward alone: its graph is built once, outside
         # the timed calls, as the kernel's forward is outside K6's time
@@ -455,11 +619,12 @@ def loop_phases(dev, gen, card_peaks, smi, registers):
         per_kernel["gate_loop_bwd"][b] = {
             "max_abs_err": errs["bwd_abs"], "max_rel_err": errs["bwd_rel"],
             "tol": f"{BWD_RTOL}*max|ref|",
-            "ms": time_ms(lambda: lk.gate_loop_bwd_partials(*y, gr, gi, *banks, lp)),
+            **timed(lambda: lk.gate_loop_bwd_partials(*y, gr, gi, *banks, lp)),
             "plain_ms": time_ms(
                 lambda: lk.loop_bwd_ref(*y_ref, gr, gi, *banks, lp), reps=5),
-            "library_ms": time_ms(lambda: torch.autograd.grad(
-                y_lib, [xg, *leaves], grad_outputs=gc, retain_graph=True), reps=10),
+            **timed(lambda: torch.autograd.grad(
+                y_lib, [xg, *leaves], grad_outputs=gc, retain_graph=True), reps=10,
+                prefix="library_", capturable=False),
             "library": "autograd backward alone of that einsum chain",
             "bound_ms": bb, "bound_by": bby, "cluster": shape["cluster"],
             "grid": partials.shape[0], "smem_per_cta": shape["bwd_smem"],
@@ -469,16 +634,9 @@ def loop_phases(dev, gen, card_peaks, smi, registers):
             raise SystemExit(f"gate_loop_bwd B={b}: {partials.shape[0]} slabs, "
                              f"want {shape['bwd_grid']}")
         del y_lib, xg, leaves, ops
-        g, slab = partials.shape
-        rb, rby = bound(g * slab, 4 * (g + 1) * slab, card_peaks)
-        per_kernel["gate_loop_reduce"][b] = {
-            "max_abs_err": red_err, "tol": f"{RED_RTOL}*max|ref|",
-            "ms": time_ms(lambda: lk.gate_loop_reduce(partials)),
-            "plain_ms": time_ms(lambda: lk.gate_loop_reduce_ref(partials), reps=5),
-            "library_ms": time_ms(lambda: torch.sum(partials, dim=0)),
-            "bound_ms": rb, "bound_by": rby, "shape": [g, slab],
-        }
-        del y, y_ref, gxr, gxi, partials, red, red_ref, xc, gc, states
+        per_kernel["gate_loop_reduce"][b] = reduce_row(
+            lk.gate_loop_reduce, lk.gate_loop_reduce_ref, partials, card_peaks, floor)
+        del y, y_ref, gxr, gxi, partials, xc, gc, states
         torch.cuda.empty_cache()
     emit({"phase": "loop_kernels", "n_qubits": 16, "card": smi, "results": per_kernel})
 
@@ -560,6 +718,7 @@ def loop_phases(dev, gen, card_peaks, smi, registers):
             "max_abs_err": max(v["max_abs_err"] for v in by_b.values()),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **{key: r[key] for key in GRAPH_KEYS if key in r},
             "batch": LOOP_BATCHES[0],
             **{key: r[key] for key in ("cluster", "grid", "smem_per_cta", "registers")
                if key in r},
@@ -655,8 +814,9 @@ def check_sv(sk, mp, banks, states, tag):
     return {"fwd_abs": e_fwd, "bwd_abs": e_abs, "bwd_rel": e_rel}, y, y_ref
 
 
-def unrolled_phases(dev, gen, card_peaks, smi):
-    """Phases 11-15; returns the K3/K4/reduction rows of the summary line."""
+def unrolled_phases(dev, gen, card_peaks, smi, floor):
+    """Phases 11-15; returns the K3/K4/reduction rows of the summary line.
+    ``floor``: the launch floor (ms)."""
     import torch
 
     from qcpinn_tpu_torch import bench, north_star as ns
@@ -707,10 +867,10 @@ def unrolled_phases(dev, gen, card_peaks, smi):
             fb, fby = bound(f_ops, 4 * 4 * b * d + bank_bytes, card_peaks)
             per_kernel["unrolled_fwd"][b] = {
                 "mode": mode, "max_abs_err": errs["fwd_abs"], "tol": SV_FWD_TOL,
-                "ms": time_ms(lambda: sk.unrolled_fwd(xr, xi, *banks, mp)),
+                **timed(lambda: sk.unrolled_fwd(xr, xi, *banks, mp)),
                 "plain_ms": time_ms(lambda: sk.unrolled_fwd_ref(xr, xi, *banks, mp),
                                     reps=5),
-                "library_ms": time_ms(lib_fwd, reps=10),
+                **timed(lib_fwd, reps=10, prefix="library_"),
                 "library": "the block engine's complex einsum chain, matrices "
                            "and phases built once (cuBLAS, TF32 off)"
                            + ("; with the product-state encoding" if mode == "apply"
@@ -718,12 +878,6 @@ def unrolled_phases(dev, gen, card_peaks, smi):
                 "bound_ms": fb, "bound_by": fby,
             }
         gxr, gxi, gmre, gmim, partials = sk.unrolled_bwd_partials(*y, gr, gi, *banks, mp)
-        red = sk.unrolled_reduce(partials)
-        red_ref = sk.unrolled_reduce_ref(partials)
-        torch.cuda.synchronize()
-        red_err = (red - red_ref).abs().max().item()
-        if not red_err <= RED_RTOL * red_ref.abs().max().item():
-            raise SystemExit(f"unrolled_reduce B={b}: err {red_err}")
         out_bytes = 4 * (gmre.numel() + gmim.numel() + banks[2].numel() + banks[3].numel())
         bb, bby = bound(b_ops, 4 * 6 * b * d + bank_bytes + out_bytes, card_peaks)
         # the library's backward alone, on the prepared state: its graph is
@@ -736,25 +890,19 @@ def unrolled_phases(dev, gen, card_peaks, smi):
         per_kernel["unrolled_bwd"][b] = {
             "mode": mode, "max_abs_err": errs["bwd_abs"], "max_rel_err": errs["bwd_rel"],
             "tol": f"{BWD_RTOL}*max|ref|",
-            "ms": time_ms(lambda: sk.unrolled_bwd_partials(*y, gr, gi, *banks, mp)),
+            **timed(lambda: sk.unrolled_bwd_partials(*y, gr, gi, *banks, mp)),
             "plain_ms": time_ms(
                 lambda: sk.unrolled_bwd_ref(*y_ref, gr, gi, *banks, mp), reps=5),
-            "library_ms": time_ms(lambda: torch.autograd.grad(
-                y_lib, [xg, *leaves], grad_outputs=gc, retain_graph=True), reps=10),
+            **timed(lambda: torch.autograd.grad(
+                y_lib, [xg, *leaves], grad_outputs=gc, retain_graph=True), reps=10,
+                prefix="library_", capturable=False),
             "library": "autograd backward alone of that einsum chain (no encoding)",
             "bound_ms": bb, "bound_by": bby, "grid": partials.shape[0],
         }
         del y_lib, xg, leaves, ops
-        g, slab = partials.shape
-        rb, rby = bound(g * slab, 4 * (g + 1) * slab, card_peaks)
-        per_kernel["unrolled_reduce"][b] = {
-            "max_abs_err": red_err, "tol": f"{RED_RTOL}*max|ref|",
-            "ms": time_ms(lambda: sk.unrolled_reduce(partials)),
-            "plain_ms": time_ms(lambda: sk.unrolled_reduce_ref(partials), reps=5),
-            "library_ms": time_ms(lambda: torch.sum(partials, dim=0)),
-            "bound_ms": rb, "bound_by": rby, "shape": [g, slab],
-        }
-        del y, y_ref, gxr, gxi, gmre, gmim, partials, red, red_ref, gc, states
+        per_kernel["unrolled_reduce"][b] = reduce_row(
+            sk.unrolled_reduce, sk.unrolled_reduce_ref, partials, card_peaks, floor)
+        del y, y_ref, gxr, gxi, gmre, gmim, partials, gc, states
         torch.cuda.empty_cache()
     emit({"phase": "unrolled_kernels", "n_qubits": SV_QUBITS, "card": smi,
           "results": per_kernel})
@@ -815,6 +963,7 @@ def unrolled_phases(dev, gen, card_peaks, smi):
             "max_abs_err": max(v["max_abs_err"] for v in by_b.values()),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **{key: r[key] for key in GRAPH_KEYS if key in r},
             "batch": main_b,
             "by_batch": {str(bb): v for bb, v in by_b.items()},
         })
@@ -1010,6 +1159,74 @@ def stage2_rate(tree: str):
     emit({"tree": tree, "package": os.path.dirname(qcpinn_tpu_torch.__file__),
           "points_per_sec": args.batch / dt, **prof,
           "card": nvidia_smi_line()})
+
+
+def reduction_cases(dev, gen):
+    """Each slab reduction at the main paths' shapes, as (tag, partials,
+    wrapper, plain version): the partials [G, slab] come from the backward
+    kernel on the inputs the phases make (``block_inputs``, ``loop_inputs``,
+    ``sv_inputs``). K2b on the 12q pair (12q, B = 6144 / 682) and on the
+    cluster pair (16q, B = 1536 / 425), K6b (16q) and K4b (8q, the evolve
+    and the apply)."""
+    from qcpinn_tpu_torch.ops import block_kernel as bk
+    from qcpinn_tpu_torch.ops import loop_kernel as lk
+    from qcpinn_tpu_torch.ops import sv_kernel as sk
+    from qcpinn_tpu_torch.ops.circuit import DVCircuit
+
+    for n, batches in ((N_QUBITS, (6 * 1024, 2 * (1024 // 3))), (16, LOOP_BATCHES)):
+        eng = bk.BlockKernelCircuit(DVCircuit(n, 1, "cross_mesh", seed=42))
+        for b in batches:
+            m, p, (xr, xi, gr, gi) = block_inputs(eng, b, gen, dev)
+            y = bk.block_chain_fwd(xr, xi, m, p, eng.plan)
+            mct = bk.conj_transpose(eng.plan, m)
+            partials = bk.block_chain_bwd_partials(*y, gr, gi, mct, p, eng.plan)[2]
+            yield (f"K2b_{n}q_B{b}", partials, bk.block_chain_reduce,
+                   bk.block_chain_reduce_ref)
+    circ = DVCircuit(16, 1, "cross_mesh", seed=42)
+    for b in LOOP_BATCHES:
+        lp, _, banks, (xr, xi, gr, gi) = loop_inputs(lk, circ, b, gen, dev)
+        y = lk.gate_loop_fwd(xr, xi, *banks, lp)
+        partials = lk.gate_loop_bwd_partials(*y, gr, gi, *banks, lp)[2]
+        yield f"K6b_16q_B{b}", partials, lk.gate_loop_reduce, lk.gate_loop_reduce_ref
+    circ = DVCircuit(SV_QUBITS, 1, "cross_mesh", seed=42)
+    for b, mode in SV_BATCHES:
+        mp, _, _, banks, (xr, xi, gr, gi) = sv_inputs(sk, circ, b, mode, gen, dev)
+        y = sk.unrolled_fwd(xr, xi, *banks, mp)
+        partials = sk.unrolled_bwd_partials(*y, gr, gi, *banks, mp)[-1]
+        yield f"K4b_8q_B{b}", partials, sk.unrolled_reduce, sk.unrolled_reduce_ref
+
+
+def slab_sum_rates(tree: str):
+    """``--slab-sum-rates TREE``: the slab reductions of TREE's
+    ``qcpinn_tpu_torch`` at the slab_sums phase's edge shapes, then at the
+    main paths' shapes (``reduction_cases``), each a ``reduce_row``:
+    bit-equal to its plain version, timed by events and by graph beside
+    torch.sum; one JSON line. To compare two trees, run it once per tree in
+    one call, in turns (A, B, B, A)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+    sys.path.insert(0, os.path.abspath(tree))
+    import qcpinn_tpu_torch
+    from qcpinn_tpu_torch.ops import cuda_build
+
+    built = cuda_build.build_all(["block_chain", "block_chain_cluster", "gate_loop",
+                                  "unrolled_sv"])
+    registers = {k: v for k, v in ptxas_registers(built["gate_loop"][2]).items()
+                 if "slab_sum" in k or "reduce" in k}
+    dev = torch.device("cuda")
+    card_peaks = peaks(torch.cuda.get_device_name(0))
+    gen = torch.Generator(device=dev).manual_seed(7)
+    slab_sum_phase(dev, gen)
+    floor = launch_floor_phase()
+    rows = {}
+    for tag, partials, wrapper, ref in reduction_cases(dev, gen):
+        rows[tag] = reduce_row(wrapper, ref, partials, card_peaks, floor)
+        del partials
+        torch.cuda.empty_cache()
+    emit({"tree": tree, "package": os.path.dirname(qcpinn_tpu_torch.__file__),
+          "slab_sums": rows, "registers": registers, "card": nvidia_smi_line()})
 
 
 def loop_step_costs():
@@ -1216,13 +1433,15 @@ def cluster_kernels():
     built = build_phase(["block_chain", "block_chain_cluster"])
     gen = torch.Generator(device=dev).manual_seed(7)
     kernel_shapes_phase(dev, gen)
+    floor = launch_floor_phase()
     cluster_phase(dev, gen, peaks(torch.cuda.get_device_name(0)), smi,
-                  ptxas_registers(built["block_chain_cluster"][2]))
+                  ptxas_registers(built["block_chain_cluster"][2]), floor)
     print(smi, flush=True)
 
 
-def cluster_phase(dev, gen, card_peaks, smi, registers):
-    """Phase ``cluster_kernels``; returns its results by (n, B)."""
+def cluster_phase(dev, gen, card_peaks, smi, registers, floor):
+    """Phase ``cluster_kernels``; returns its results by (n, B). ``floor``:
+    the launch floor (ms)."""
     import torch
 
     from qcpinn_tpu_torch.ops import block_kernel as bk
@@ -1254,10 +1473,11 @@ def cluster_phase(dev, gen, card_peaks, smi, registers):
             reps = 5 if n == 16 else TIME_REPS
             row = {"fwd": {
                 "max_abs_err": errs["fwd_abs"], "tol": FWD_TOL,
-                "ms": time_ms(lambda: bk.block_chain_fwd(xr, xi, m, p, plan), reps=reps),
+                **timed(lambda: bk.block_chain_fwd(xr, xi, m, p, plan), reps=reps),
                 "plain_ms": time_ms(lambda: bk.block_chain_fwd_ref(xr, xi, m, p, plan),
                                     reps=5),
-                "library_ms": time_ms(lambda: lib_chain(plan, xc, mats_c, ph_c), reps=reps),
+                **timed(lambda: lib_chain(plan, xc, mats_c, ph_c), reps=reps,
+                        prefix="library_"),
                 "library": "the complex einsum chain (cuBLAS, TF32 off)",
                 "bound_ms": fb, "bound_by": fby, "bound_rate": TC_RATE,
                 "bound_fp32_ms": bound(f_ops, f_bytes, card_peaks)[0],
@@ -1274,13 +1494,13 @@ def cluster_phase(dev, gen, card_peaks, smi, registers):
             row["bwd"] = {
                 "max_abs_err": errs["bwd_abs"], "max_rel_err": errs["bwd_rel"],
                 "tol": f"{BWD_RTOL}*max|ref|",
-                "ms": time_ms(lambda: bk.block_chain_bwd_partials(
+                **timed(lambda: bk.block_chain_bwd_partials(
                     *y, gr, gi, mct, p, plan), reps=reps),
                 "plain_ms": time_ms(lambda: bk.block_chain_bwd_ref(
                     *y_ref, gr, gi, mct, p, plan), reps=5),
-                "library_ms": time_ms(lambda: torch.autograd.grad(
+                **timed(lambda: torch.autograd.grad(
                     y_lib, [xg, *mg, *pg], grad_outputs=gc, retain_graph=True),
-                    reps=reps),
+                    reps=reps, prefix="library_", capturable=False),
                 "library": "autograd backward alone of the complex einsum chain",
                 "bound_ms": bb, "bound_by": bby, "bound_rate": TC_RATE,
                 "bound_fp32_ms": bound(b_ops, b_bytes, card_peaks)[0],
@@ -1288,17 +1508,8 @@ def cluster_phase(dev, gen, card_peaks, smi, registers):
                 "grid_clusters": partials.shape[0],
                 "registers": registers.get("block_cluster_bwd_kernel"),
             }
-            g, slab = partials.shape
-            rb, rby = bound(g * slab, 4 * (g + 1) * slab, card_peaks)
-            red_err = (bk.block_chain_reduce(partials)
-                       - bk.block_chain_reduce_ref(partials)).abs().max().item()
-            row["reduce"] = {
-                "max_abs_err": red_err, "shape": [g, slab],
-                "ms": time_ms(lambda: bk.block_chain_reduce(partials)),
-                "plain_ms": time_ms(lambda: bk.block_chain_reduce_ref(partials), reps=5),
-                "library_ms": time_ms(lambda: torch.sum(partials, dim=0)),
-                "bound_ms": rb, "bound_by": rby,
-            }
+            row["reduce"] = reduce_row(bk.block_chain_reduce, bk.block_chain_reduce_ref,
+                                       partials, card_peaks, floor)
             out[tag] = row
             del y, y_ref, y_lib, xg, mg, pg, gc, xc, states, partials
             torch.cuda.empty_cache()
@@ -1409,7 +1620,8 @@ def north_star_block_phase(dev, smi):
 
 def k4b_probe(dev, gen, when):
     """Phase ``k4b_probe``: K3, K4 and K4b, and torch.sum over K4b's slabs,
-    at the 8q main path's stream batch (the evolve of B = 6144 rows)."""
+    at the 8q main path's stream batch (the evolve of B = 6144 rows), by
+    events and by graph."""
     import torch
 
     from qcpinn_tpu_torch.ops import sv_kernel as sk
@@ -1421,13 +1633,15 @@ def k4b_probe(dev, gen, when):
     y = sk.unrolled_fwd(xr, xi, *banks, mp)
     partials = sk.unrolled_bwd_partials(*y, gr, gi, *banks, mp)[-1]
     row = {"phase": "k4b_probe", "when": when, "batch": SV_BATCHES[0][0],
-           "slabs": list(partials.shape),
-           "unrolled_fwd_ms": time_ms(lambda: sk.unrolled_fwd(xr, xi, *banks, mp)),
-           "unrolled_bwd_ms": time_ms(
-               lambda: sk.unrolled_bwd_partials(*y, gr, gi, *banks, mp)),
-           "unrolled_reduce_ms": time_ms(lambda: sk.unrolled_reduce(partials)),
-           "torch_sum_ms": time_ms(lambda: torch.sum(partials, dim=0)),
-           "card": nvidia_smi_line()}
+           "slabs": list(partials.shape)}
+    for key, fn in (
+            ("unrolled_fwd", lambda: sk.unrolled_fwd(xr, xi, *banks, mp)),
+            ("unrolled_bwd", lambda: sk.unrolled_bwd_partials(*y, gr, gi, *banks, mp)),
+            ("unrolled_reduce", lambda: sk.unrolled_reduce(partials)),
+            ("torch_sum", lambda: torch.sum(partials, dim=0))):
+        row[f"{key}_ms"] = time_ms(fn)
+        row[f"{key}_graph_ms"] = graph_ms(fn)
+    row["card"] = nvidia_smi_line()
     emit(row)
     del y, partials, xr, xi, gr, gi
     torch.cuda.empty_cache()
@@ -1445,6 +1659,8 @@ def main():
         return loop_step_costs()
     if sys.argv[1:] == ["--cluster-kernels"]:
         return cluster_kernels()
+    if len(sys.argv) == 3 and sys.argv[1] == "--slab-sum-rates":
+        return slab_sum_rates(sys.argv[2])
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -1477,6 +1693,8 @@ def main():
     # -- 3. every configuration of the block-chain kernels -------------------
     gen = torch.Generator(device=dev).manual_seed(7)
     kernel_shapes_phase(dev, gen)
+    slab_sum_phase(dev, gen)
+    floor = launch_floor_phase()
     k4b_before = k4b_probe(dev, gen, "before the 16q phases")
 
     # -- 4. kernels vs plain versions at the main path's shapes ------------
@@ -1519,10 +1737,10 @@ def main():
                         4 * state_bytes + mats_bytes + ph_bytes, card_peaks)
         per_kernel["block_chain_fwd"][b] = {
             "max_abs_err": err, "tol": FWD_TOL,
-            "ms": time_ms(lambda: bk.block_chain_fwd(xr, xi, m, p, plan)),
+            **timed(lambda: bk.block_chain_fwd(xr, xi, m, p, plan)),
             "plain_ms": time_ms(
                 lambda: bk.block_chain_fwd_ref(xr, xi, m, p, plan)),
-            "library_ms": time_ms(lambda: lib_chain(plan, xc, mats_c, ph_c)),
+            **timed(lambda: lib_chain(plan, xc, mats_c, ph_c), prefix="library_"),
             "bound_ms": fb, "bound_by": fby,
         }
 
@@ -1531,7 +1749,6 @@ def main():
             yr, yi, gr, gi, mct, p, plan)
         red = bk.block_chain_reduce(partials)
         out = bk.block_chain_bwd_ref(ryr, ryi, gr, gi, mct, p, plan)
-        red_ref = bk.block_chain_reduce_ref(partials)
         got = bk.block_chain_bwd(yr, yi, gr, gi, mct, p, plan)
         torch.cuda.synchronize()
         # gx, then each mat's and each phase plane's cotangent on its own
@@ -1549,10 +1766,6 @@ def main():
                     f"block_chain_bwd B={b}: err {e} > {BWD_RTOL} * {scale}")
             err = max(err, e)
             worst = max(worst, e / scale)
-        red_err = (red - red_ref).abs().max().item()
-        red_scale = red_ref.abs().max().item()
-        if not red_err <= RED_RTOL * red_scale:
-            raise SystemExit(f"block_chain_reduce: err {red_err} vs {red_scale}")
         if not (torch.equal(gxr, got[0]) and torch.equal(gxi, got[1])
                 and torch.equal(red, torch.cat([got[2], got[3]]))):
             raise SystemExit("block_chain_bwd is not deterministic")
@@ -1579,11 +1792,11 @@ def main():
 
         per_kernel["block_chain_bwd"][b] = {
             "max_abs_err": err, "max_rel_err": worst, "tol": f"{BWD_RTOL}*max|ref|",
-            "ms": time_ms(lambda: bk.block_chain_bwd_partials(
+            **timed(lambda: bk.block_chain_bwd_partials(
                 yr, yi, gr, gi, mct, p, plan)),
             "plain_ms": time_ms(lambda: bk.block_chain_bwd_ref(
                 ryr, ryi, gr, gi, mct, p, plan)),
-            "library_ms": time_ms(lib_bwd),
+            **timed(lib_bwd, prefix="library_", capturable=False),
             "library": "autograd backward alone of the complex einsum chain",
             "bound_ms": bb, "bound_by": bby,
             "bound_rate": TC_RATE,
@@ -1594,15 +1807,8 @@ def main():
             "mct_buffers": bufs, "smem_per_cta": bwd_smem,
             "registers": registers.get("block_chain_bwd_kernel"),
         }
-        g = partials.shape[0]
-        rb, rby = bound(g * slab, 4 * (g + 1) * slab, card_peaks)
-        per_kernel["block_chain_reduce"][b] = {
-            "max_abs_err": red_err, "tol": f"{RED_RTOL}*max|ref|",
-            "ms": time_ms(lambda: bk.block_chain_reduce(partials)),
-            "plain_ms": time_ms(lambda: bk.block_chain_reduce_ref(partials)),
-            "library_ms": time_ms(lambda: torch.sum(partials, dim=0)),
-            "bound_ms": rb, "bound_by": rby, "shape": [g, slab],
-        }
+        per_kernel["block_chain_reduce"][b] = reduce_row(
+            bk.block_chain_reduce, bk.block_chain_reduce_ref, partials, card_peaks, floor)
     emit({"phase": "kernels", "n_qubits": N_QUBITS, "card": smi,
           "results": per_kernel})
 
@@ -1627,23 +1833,24 @@ def main():
 
     # -- 7-10. the 16q north-star path through the gate-loop kernels ---------
     loop_results = loop_phases(dev, gen, card_peaks, smi,
-                               ptxas_registers(built["gate_loop"][2]))
+                               ptxas_registers(built["gate_loop"][2]), floor)
     torch.cuda.empty_cache()
 
     # -- 16-17. the cluster pair at 13-16 qubits and on the 16q stage 2 ----
     cluster = cluster_phase(dev, gen, card_peaks, smi,
-                            ptxas_registers(built["block_chain_cluster"][2]))
+                            ptxas_registers(built["block_chain_cluster"][2]), floor)
     torch.cuda.empty_cache()
     ns_block_launches = north_star_block_phase(dev, smi)
     torch.cuda.empty_cache()
 
     # -- 11-15. the 8q main path and the plain solver through K3/K4 ----------
-    unrolled_results = unrolled_phases(dev, gen, card_peaks, smi)
+    unrolled_results = unrolled_phases(dev, gen, card_peaks, smi, floor)
     k4b_after = k4b_probe(dev, gen, "after the 16q phases")
-    emit({"phase": "k4b_question", "k4b_ms_before": k4b_before["unrolled_reduce_ms"],
-          "k4b_ms_after": k4b_after["unrolled_reduce_ms"],
-          "torch_sum_ms_before": k4b_before["torch_sum_ms"],
-          "torch_sum_ms_after": k4b_after["torch_sum_ms"]})
+    emit({"phase": "k4b_question", **{
+        f"{key}_{when}": row[key] for when, row in (("before", k4b_before),
+                                                    ("after", k4b_after))
+        for key in ("unrolled_reduce_ms", "unrolled_reduce_graph_ms", "torch_sum_ms",
+                    "torch_sum_graph_ms")}})
 
     sources = {
         "block_chain_fwd": "qcpinn_tpu/ops/block_pallas.py:189",
@@ -1661,12 +1868,16 @@ def main():
             "max_abs_err": max(v["max_abs_err"] for v in by_b.values()),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **{key: r[key] for key in GRAPH_KEYS if key in r},
             "batch": main_b,
             **{key: r[key] for key in ("bound_rate", "bound_fp32_ms", "smem_per_cta",
                                        "registers")
                if key in r},
             "by_batch": {str(bb): v for bb, v in by_b.items()},
         })
+    # K2b on the cluster pair's slabs (its launches on that path are counted
+    # in north_star_block)
+    kernels[-1]["cluster_slabs"] = {tag: row["reduce"] for tag, row in cluster.items()}
     # the cluster pair: its launches on the block_kernel stage-2 path
     for k, part, src in (("block_cluster_fwd", "fwd", "qcpinn_tpu/ops/block_pallas.py:189"),
                          ("block_cluster_bwd", "bwd", "qcpinn_tpu/ops/block_pallas.py:222")):
@@ -1679,6 +1890,7 @@ def main():
             "max_abs_err": max(v["max_abs_err"] for v in by_b.values()),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **{key: r[key] for key in GRAPH_KEYS if key in r},
             "batch": LOOP_BATCHES[0], "n_qubits": 16,
             **{key: r[key] for key in ("bound_rate", "bound_fp32_ms", "cluster",
                                        "smem_per_cta", "registers", "grid_clusters")},

@@ -41,7 +41,8 @@
 // The matrix and phase cotangents are sums over the batch. A TPU grid runs
 // in order and can carry that sum across grid steps; CTAs cannot, so a
 // persistent grid of G CTAs each sums its own samples into a private slab
-// in device memory, and a second kernel adds the G slabs in a fixed order.
+// in device memory, and a second kernel adds the G slabs in a fixed order
+// (slab_sum.cuh, shared with the other backwards).
 // No float atomics: the result is deterministic.
 //
 // Plain C interface (loaded with ctypes); every entry returns
@@ -51,6 +52,7 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "slab_sum.cuh"
 #include "tf32_mma.cuh"
 
 #define QC_MAX_STEPS 128
@@ -546,18 +548,6 @@ block_chain_bwd_kernel(const float* __restrict__ yr, const float* __restrict__ y
     cp_async_wait<0>();
 }
 
-// out[e] = sum_{c < G} partials[c][e], in a fixed order.
-extern "C" __global__ void block_chain_reduce_kernel(
-    const float* __restrict__ partials, float* __restrict__ out, int slab,
-    int G) {
-    for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < slab;
-         e += gridDim.x * blockDim.x) {
-        float acc = 0.f;
-        for (int c = 0; c < G; ++c) acc += partials[(size_t)c * slab + e];
-        out[e] = acc;
-    }
-}
-
 static int fill_plan(QcPlan* plan, const int* steps, int n_steps) {
     if (n_steps < 0 || n_steps > QC_MAX_STEPS) return (int)cudaErrorInvalidValue;
     plan->n_steps = n_steps;
@@ -663,10 +653,8 @@ extern "C" int qc_block_chain_bwd(const float* yr, const float* yi,
     return (int)cudaGetLastError();
 }
 
+// K2b, for both pairs' slabs (slab_sum.cuh).
 extern "C" int qc_block_chain_reduce(const float* partials, float* out,
                                      int slab, int G, void* stream) {
-    const int blocks = (slab + QC_THREADS - 1) / QC_THREADS;
-    block_chain_reduce_kernel<<<blocks, QC_THREADS, 0, (cudaStream_t)stream>>>(
-        partials, out, slab, G);
-    return (int)cudaGetLastError();
+    return slab_sum_launch(partials, out, slab, G, stream);
 }

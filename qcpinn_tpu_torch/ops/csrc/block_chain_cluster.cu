@@ -64,8 +64,8 @@
 // contract(g, Mct)); a diag step recovers, adds the phase cotangents of
 // the rank's own elements and pulls back. A persistent grid of clusters
 // takes samples c, c + G, ...; each cluster owns one slab and
-// block_chain.cu's block_chain_reduce_kernel adds the G slabs in a fixed
-// order, so two runs are bit-equal.
+// block_chain.cu's qc_block_chain_reduce (slab_sum.cuh) adds the G slabs
+// in a fixed order, so two runs are bit-equal.
 //
 // Plain C interface (loaded with ctypes); every entry returns the launch's
 // error (cudaLaunchKernelEx, then cudaGetLastError()).

@@ -58,6 +58,7 @@
 // ctypes); every entry returns the launch's error.
 
 #include "gate_table.cuh"
+#include "slab_sum.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -442,13 +443,6 @@ gate_loop_bwd_kernel(const float* __restrict__ yr, const float* __restrict__ yi,
     step_barrier(C > 1);
 }
 
-// out[e] = sum_{c < G} partials[c][e], in a fixed order.
-extern "C" __global__ void gate_loop_reduce_kernel(
-    const float* __restrict__ partials, float* __restrict__ out, int slab,
-    int G) {
-    slab_sum(partials, out, slab, G);
-}
-
 static size_t fwd_smem_done[GT_MAX_DEVICES];
 static size_t bwd_smem_done[GT_MAX_DEVICES];
 
@@ -553,11 +547,8 @@ extern "C" int qc_gate_loop_bwd(const float* yr, const float* yi,
     return err ? err : (int)cudaGetLastError();
 }
 
+// K6b (slab_sum.cuh).
 extern "C" int qc_gate_loop_reduce(const float* partials, float* out, int slab,
                                    int G, void* stream) {
-    const int threads = 256;
-    const int blocks = (slab + threads - 1) / threads;
-    gate_loop_reduce_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        partials, out, slab, G);
-    return (int)cudaGetLastError();
+    return slab_sum_launch(partials, out, slab, G, stream);
 }

@@ -1,7 +1,7 @@
 // Shared by gate_loop.cu and unrolled_sv.cu, the two kernel families that
 // walk a gate table: the table itself, the amplitude-pair and quad
-// addressing, the 2x2 and 4x4 updates, the fixed-order block and slab
-// reductions, the launch helpers, and the split of one sample over a
+// addressing, the 2x2 and 4x4 updates, the fixed-order block reduction,
+// the launch helpers, and the split of one sample over a
 // thread-block cluster with its fixed-order sum across ranks (gate_loop.cu).
 //
 // A sample's state is a row of 2^n split re/im f32 amplitudes, wire 0 the
@@ -217,18 +217,6 @@ __device__ __forceinline__ void block_sum8(float v[8], float* red) {
             for (int off = 16; off > 0; off >>= 1)
                 v[e] += __shfl_down_sync(0xffffffffu, v[e], off);
         }
-    }
-}
-
-// out[e] = sum_{c < G} partials[c][e], in a fixed order (grid-stride over e).
-__device__ __forceinline__ void slab_sum(const float* __restrict__ partials,
-                                         float* __restrict__ out, int slab,
-                                         int G) {
-    for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < slab;
-         e += gridDim.x * blockDim.x) {
-        float acc = 0.f;
-        for (int c = 0; c < G; ++c) acc += partials[(size_t)c * slab + e];
-        out[e] = acc;
     }
 }
 

@@ -1,10 +1,11 @@
 // Unrolled micro-program kernels for Hopper (sm_90a), plain FP32 FMA.
 //
 // Replaces qcpinn_tpu/ops/pallas_sv.py::_forward_kernel (K3) and
-// ::_backward_kernel (K4); unrolled_reduce_kernel (K4b) is the fixed-order
-// sum of K4's phase cotangents, which the TPU kernel accumulates over its
-// sequential grid. The state of one sample is a row of 2^n split re/im f32
-// amplitudes, wire 0 the most significant bit. A step is one of
+// ::_backward_kernel (K4); qc_unrolled_reduce (K4b, slab_sum.cuh) is the
+// fixed-order sum of K4's phase cotangents, which the TPU kernel
+// accumulates over its sequential grid. The state of one sample is a row
+// of 2^n split re/im f32 amplitudes, wire 0 the most significant bit. A
+// step is one of
 //   mat  : a per-sample 2x2 from the [B, K, 2, 2] re/im banks on target bit
 //          ga, optionally only where control bit gb is 1 (the JAX 1q / c1q;
 //          with the encoding the first n are the per-sample RX gates);
@@ -36,15 +37,17 @@
 // (a fixed-order block reduction: warp shuffles, then shared memory) and
 // pulls the cotangent g back through the same inverse. The phase
 // cotangents are batch sums: a persistent grid of G CTAs sums its samples
-// into one private slab each in device memory, and unrolled_reduce_kernel
-// adds the G slabs in a fixed order. No float atomics: two runs are
-// bit-equal.
+// into one private slab each in device memory, and the slab sum
+// (slab_sum.cuh) adds the G slabs in a fixed order. No float atomics: two
+// runs are bit-equal.
 //
-// The table, the addressing and the reductions are shared with gate_loop.cu
-// (gate_table.cuh). Plain C interface (loaded with ctypes); every entry
-// returns cudaGetLastError() after its launch.
+// The table, the addressing and the block reduction are shared with
+// gate_loop.cu (gate_table.cuh), the slab sum with every backward. Plain C
+// interface (loaded with ctypes); every entry returns cudaGetLastError()
+// after its launch.
 
 #include "gate_table.cuh"
+#include "slab_sum.cuh"
 
 #define US_MAX_QUBITS 12
 
@@ -240,13 +243,6 @@ unrolled_bwd_kernel(const float* __restrict__ yr, const float* __restrict__ yi,
     }
 }
 
-// out[e] = sum_{c < G} partials[c][e], in a fixed order.
-extern "C" __global__ void unrolled_reduce_kernel(
-    const float* __restrict__ partials, float* __restrict__ out, int slab,
-    int G) {
-    slab_sum(partials, out, slab, G);
-}
-
 static int check_shape(int n, int threads) {
     if (n < 1 || n > US_MAX_QUBITS) return (int)cudaErrorInvalidValue;
     if (threads < 32 || threads > GT_MAX_THREADS || threads % 32)
@@ -302,11 +298,8 @@ extern "C" int qc_unrolled_bwd(const float* yr, const float* yi,
     return (int)cudaGetLastError();
 }
 
+// K4b (slab_sum.cuh).
 extern "C" int qc_unrolled_reduce(const float* partials, float* out, int slab,
                                   int G, void* stream) {
-    const int threads = 256;
-    const int blocks = (slab + threads - 1) / threads;
-    unrolled_reduce_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        partials, out, slab, G);
-    return (int)cudaGetLastError();
+    return slab_sum_launch(partials, out, slab, G, stream);
 }
