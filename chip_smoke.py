@@ -10,14 +10,17 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                gate_loop.cu and unrolled_sv.cu from the checkout, one
                process per source, started together.
 3. kernel_shapes every configuration of the block-chain kernels against
-               the plain versions, same limits as below, the backward
-               bit-equal across two runs, each row with the pair that ran it:
-               the 12q pair at the other sizes ``auto`` sends to it (n = 10,
-               11, 12 with 3 layers; B = 37 and B = 1) and its uneven splits
-               (a 128-wide block: one sample per backward CTA, one matrix
-               buffer); the cluster pair at n = 2, 3, 4, 8, 9 (blocks 2-16
-               wide), n = 4 at hb 1 and 3, n = 10 at hb 7, n = 12 at hb 2
-               and 8, and 13, 14, 15, 16 qubits (clusters of 1-8 CTAs), B = 37.
+               the plain versions, same limits as below, each kernel
+               bit-equal across two runs, each row with the pair that ran it
+               and its launch shape: the 12q pair at the other sizes
+               ``auto`` sends to it (n = 10, 11, 12 with 3 layers; B = 37,
+               B = 1 and B = 682, where K1 takes tiles of 3 samples) and its
+               uneven splits (a 128-wide block: one matrix buffer, one
+               sample per backward CTA), and a hand-made 12q plan whose
+               diag steps K1 cannot fold into a product (HAND_PLAN); the
+               cluster pair at n = 2, 3, 4, 8, 9 (blocks 2-16 wide), n = 4
+               at hb 1 and 3, n = 10 at hb 7, n = 12 at hb 2 and 8, and 13,
+               14, 15, 16 qubits (clusters of 1-8 CTAs), B = 37.
 3a. slab_sums  the three slab reductions (K2b, K6b, K4b), one header
                (ops/csrc/slab_sum.cuh), at edge shapes of both its forms
                (SLAB_SHAPES), each bit-equal to its plain version.
@@ -27,20 +30,25 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                stream batch, timed here, before the 16q phases, and again
                after them (the same function, ``when`` says which).
 4. kernels     every block-chain kernel at the 12q main path's shapes
-               (B = 6144 stream rows and B = 682 value rows) against its
-               plain PyTorch version on the same inputs: forward <= 2e-5
-               (unit-norm states), backward <= 2e-4 * max|ref| per output,
-               reduction bit-equal (both add slab 0, 1, ..., G-1 in order).
-               Times from CUDA events (median of single calls, the
-               wrapper's host side included: ``ms``) and, for every row
-               under 1 ms and every reduction, from a CUDA graph of 20
-               calls (``graph_ms``: the card's time); K2's bound at a
-               third of the TF32 tensor-core peak (3xTF32, what it runs
-               on), beside its FP32 SIMT bound, its registers and shared
-               memory.
+               (B = 6144 stream rows and B = 682 value rows, inputs from a
+               seed of their own: ``block_main_inputs``) against its plain
+               PyTorch version on the same inputs: forward <= 2e-5
+               (unit-norm states) and bit-equal across two runs, backward
+               <= 2e-4 * max|ref| per output, reduction bit-equal (both add
+               slab 0, 1, ..., G-1 in order). Times from CUDA events
+               (median of single calls, the wrapper's host side included:
+               ``ms``) and, for every row under 1 ms and every reduction,
+               from a CUDA graph of 20 calls (``graph_ms``: the card's
+               time), the library's autograd backward too
+               (``autograd_timed``); K1's and K2's bounds at a third of the
+               TF32 tensor-core peak (3xTF32, what they run on), beside the
+               FP32 SIMT bound, their tiles, grid, registers and shared
+               memory, and K1 at every tile of samples that fits
+               (``k1_tile_sweep``: each within the limit, timed).
 5. step_parity one 12-qubit train step through the kernels against the same
-               step on the plain block engine: same params, same points; loss
-               rtol 2e-5, every grad atol 2e-4 * max(|ref|, 1e-3).
+               step on the plain block engine, at each of STEP_SEEDS: same
+               params, same points; loss rtol 2e-5, every grad atol 2e-4 *
+               max(|ref|, 1e-3).
 6. train       the 12q main path: the bench train step (B = 1024, hidden 50,
                lr 5e-3, seed 42), a captured CUDA graph, with the launch
                counters set to 0 just before: 3 eager warm-ups, the capture
@@ -142,7 +150,7 @@ Four measurements beside the smoke test:
     python3 chip_smoke.py --stage2-rate TREE   # the 16q stage-2 step of TREE's package
     python3 chip_smoke.py --loop-step-costs    # K5/K6 time per step kind at 16q
     python3 chip_smoke.py --cluster-kernels    # build, kernel_shapes, cluster_kernels
-    python3 chip_smoke.py --slab-sum-rates TREE  # TREE's slab sums, graph-timed
+    python3 chip_smoke.py --rates TREE         # TREE's rows of phase 4 and step_parity
 """
 
 import json
@@ -158,7 +166,7 @@ STEPS = 30
 TIME_REPS = 20
 GRAPH_REPLAYS = 7
 GRAPH_BELOW_MS = 1.0  # rows timed by events under this are graph-timed too
-GRAPH_KEYS = ("graph_ms", "library_graph_ms", "library_timer", "launch_floor_ms")
+GRAPH_KEYS = ("graph_ms", "library_graph_ms", "launch_floor_ms")
 FWD_TOL = 2e-5
 BWD_RTOL = 2e-4
 TC_RATE = "a third of the TF32 tensor-core peak (3xTF32)"
@@ -211,16 +219,17 @@ def time_ms(fn, reps=TIME_REPS):
     return statistics.median(ts)
 
 
-def graph_ms(fn, reps=TIME_REPS):
+def graph_ms(fn, reps=TIME_REPS, stream=None):
     """The card's ms for one call of ``fn``: 3 warm-up calls, then ``reps``
     calls captured in one CUDA graph, the graph replayed GRAPH_REPLAYS
     times, each replay between two CUDA events; the median replay over
     ``reps``. No host work lies between the events (``time_ms`` times the
     wrapper's host side too), so a launch costs only its graph node: the
-    launch_floor phase says how much that is."""
+    launch_floor phase says how much that is. ``stream``: the stream to
+    warm up and capture on (default a new one)."""
     import torch
 
-    side = torch.cuda.Stream()
+    side = stream or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
@@ -228,7 +237,7 @@ def graph_ms(fn, reps=TIME_REPS):
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(reps):
             fn()
     graph.replay()
@@ -246,18 +255,37 @@ def graph_ms(fn, reps=TIME_REPS):
     return statistics.median(ts)
 
 
-def timed(fn, reps=TIME_REPS, prefix="", capturable=True):
-    """``{prefix}ms`` from CUDA events (``time_ms``) and, where that is
-    under GRAPH_BELOW_MS, ``{prefix}graph_ms`` (``graph_ms``); a call that
-    cannot be captured (an autograd backward, whose graph was recorded on
-    another stream) keeps its event time only, marked so."""
+def timed(fn, reps=TIME_REPS, prefix="", stream=None, graph=None):
+    """``{prefix}ms`` from CUDA events (``time_ms``) and, where ``graph``
+    says so (by default where that is under GRAPH_BELOW_MS),
+    ``{prefix}graph_ms`` (``graph_ms`` on ``stream``)."""
     row = {f"{prefix}ms": time_ms(fn, reps)}
-    if row[f"{prefix}ms"] < GRAPH_BELOW_MS:
-        if capturable:
-            row[f"{prefix}graph_ms"] = graph_ms(fn)
-        else:
-            row[f"{prefix}graph_ms"] = None
-            row[f"{prefix}timer"] = "CUDA events only: autograd's backward is not captured"
+    if row[f"{prefix}ms"] < GRAPH_BELOW_MS if graph is None else graph:
+        row[f"{prefix}graph_ms"] = graph_ms(fn, stream=stream)
+    return row
+
+
+def autograd_timed(forward, grad_out, graph, reps=TIME_REPS, prefix="library_"):
+    """``timed`` for the autograd backward alone of ``forward() -> (y,
+    leaves)``, ``torch.autograd.grad(y, leaves, grad_out)``, graph-timed
+    where ``graph`` (the kernel's row beside it is): the forward is built
+    once, outside the timed calls, on a stream of its own, and every call
+    runs on that stream. Autograd runs each backward op on its forward op's
+    stream, so the graph timer captures the backward there (from a forward
+    on another stream it would run outside the capture)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        y, leaves = forward()
+
+        def backward():
+            return torch.autograd.grad(y, leaves, grad_outputs=grad_out,
+                                       retain_graph=True)
+
+        row = timed(backward, reps, prefix, stream=side, graph=graph)
+    torch.cuda.current_stream().wait_stream(side)
     return row
 
 
@@ -532,6 +560,18 @@ def run_chain(ops, s):
     return s
 
 
+def chain_forward(ops, x):
+    """``autograd_timed``'s forward of ``run_chain(ops, x)``: fresh leaves
+    for the state and every matrix and phase plane."""
+
+    def forward():
+        xg = x.clone().requires_grad_(True)
+        leaves = [m.clone().requires_grad_(True) for _, m in ops]
+        return run_chain([(eq, m) for (eq, _), m in zip(ops, leaves)], xg), [xg, *leaves]
+
+    return forward
+
+
 class _Fixed:
     """A sampler that returns preset points."""
 
@@ -612,19 +652,14 @@ def loop_phases(dev, gen, card_peaks, smi, registers, floor):
         bb, bby = bound(b_ops, 4 * 6 * b * d + bank_bytes + out_bytes, card_peaks)
         # the library's backward alone: its graph is built once, outside
         # the timed calls, as the kernel's forward is outside K6's time
-        xg = xc.clone().requires_grad_(True)
-        leaves = [m.clone().requires_grad_(True) for _, m in ops]
-        y_lib = run_chain([(eq, m) for (eq, _), m in zip(ops, leaves)], xg)
         gc = torch.complex(gr, gi).reshape(xc.shape)
+        kern = timed(lambda: lk.gate_loop_bwd_partials(*y, gr, gi, *banks, lp))
         per_kernel["gate_loop_bwd"][b] = {
             "max_abs_err": errs["bwd_abs"], "max_rel_err": errs["bwd_rel"],
-            "tol": f"{BWD_RTOL}*max|ref|",
-            **timed(lambda: lk.gate_loop_bwd_partials(*y, gr, gi, *banks, lp)),
+            "tol": f"{BWD_RTOL}*max|ref|", **kern,
             "plain_ms": time_ms(
                 lambda: lk.loop_bwd_ref(*y_ref, gr, gi, *banks, lp), reps=5),
-            **timed(lambda: torch.autograd.grad(
-                y_lib, [xg, *leaves], grad_outputs=gc, retain_graph=True), reps=10,
-                prefix="library_", capturable=False),
+            **autograd_timed(chain_forward(ops, xc), gc, "graph_ms" in kern, reps=10),
             "library": "autograd backward alone of that einsum chain",
             "bound_ms": bb, "bound_by": bby, "cluster": shape["cluster"],
             "grid": partials.shape[0], "smem_per_cta": shape["bwd_smem"],
@@ -633,7 +668,7 @@ def loop_phases(dev, gen, card_peaks, smi, registers, floor):
         if partials.shape[0] != shape["bwd_grid"]:
             raise SystemExit(f"gate_loop_bwd B={b}: {partials.shape[0]} slabs, "
                              f"want {shape['bwd_grid']}")
-        del y_lib, xg, leaves, ops
+        del ops
         per_kernel["gate_loop_reduce"][b] = reduce_row(
             lk.gate_loop_reduce, lk.gate_loop_reduce_ref, partials, card_peaks, floor)
         del y, y_ref, gxr, gxi, partials, xc, gc, states
@@ -883,23 +918,19 @@ def unrolled_phases(dev, gen, card_peaks, smi, floor):
         # the library's backward alone, on the prepared state: its graph is
         # built once, outside the timed calls, as the kernel's forward is
         # outside K4's time
-        xg = torch.complex(xr, xi).reshape(b, *hl).requires_grad_(True)
-        leaves = [m.clone().requires_grad_(True) for _, m in ops]
-        y_lib = run_chain([(eq, m) for (eq, _), m in zip(ops, leaves)], xg)
-        gc = torch.complex(gr, gi).reshape(xg.shape)
+        gc = torch.complex(gr, gi).reshape(b, *hl)
+        kern = timed(lambda: sk.unrolled_bwd_partials(*y, gr, gi, *banks, mp))
         per_kernel["unrolled_bwd"][b] = {
             "mode": mode, "max_abs_err": errs["bwd_abs"], "max_rel_err": errs["bwd_rel"],
-            "tol": f"{BWD_RTOL}*max|ref|",
-            **timed(lambda: sk.unrolled_bwd_partials(*y, gr, gi, *banks, mp)),
+            "tol": f"{BWD_RTOL}*max|ref|", **kern,
             "plain_ms": time_ms(
                 lambda: sk.unrolled_bwd_ref(*y_ref, gr, gi, *banks, mp), reps=5),
-            **timed(lambda: torch.autograd.grad(
-                y_lib, [xg, *leaves], grad_outputs=gc, retain_graph=True), reps=10,
-                prefix="library_", capturable=False),
+            **autograd_timed(chain_forward(ops, torch.complex(xr, xi).reshape(b, *hl)),
+                             gc, "graph_ms" in kern, reps=10),
             "library": "autograd backward alone of that einsum chain (no encoding)",
             "bound_ms": bb, "bound_by": bby, "grid": partials.shape[0],
         }
-        del y_lib, xg, leaves, ops
+        del ops
         per_kernel["unrolled_reduce"][b] = reduce_row(
             sk.unrolled_reduce, sk.unrolled_reduce_ref, partials, card_peaks, floor)
         del y, y_ref, gxr, gxi, gmre, gmim, partials, gc, states
@@ -970,12 +1001,13 @@ def unrolled_phases(dev, gen, card_peaks, smi, floor):
     return rows
 
 
-def step_parity(bench, n_qubits, backend):
-    """One bench train step through ``backend`` against the same step on
-    the plain block engine: same params, same points; loss rtol 2e-5, every
-    grad atol 2e-4 * max(|ref|, 1e-3)."""
-    kern = bench.build(n_qubits=n_qubits, backend=backend)
-    plain = bench.build(n_qubits=n_qubits, backend="block")
+def step_parity(bench, n_qubits, backend, seed=42):
+    """One bench train step (``bench.build``'s ``seed``) through
+    ``backend`` against the same step on the plain block engine: same
+    params, same points; loss rtol 2e-5, every grad atol 2e-4 * max(|ref|,
+    1e-3)."""
+    kern = bench.build(n_qubits=n_qubits, backend=backend, seed=seed)
+    plain = bench.build(n_qubits=n_qubits, backend="block", seed=seed)
     plain.model.load_state_dict(kern.model.state_dict())
     points = kern.sample()
     grads = {}
@@ -997,6 +1029,7 @@ def step_parity(bench, n_qubits, backend):
             raise SystemExit(f"{n_qubits}q step grad {k}: {e} > 2e-4 * {scale}")
         worst[k] = e / scale
     return {"loss_kernel": losses["kernel"], "loss_plain": losses["plain"],
+            "loss_rel_err": abs(losses["kernel"] - losses["plain"]) / abs(losses["plain"]),
             "max_grad_err_over_scale": max(worst.values())}
 
 
@@ -1173,7 +1206,7 @@ def reduction_cases(dev, gen):
     from qcpinn_tpu_torch.ops import sv_kernel as sk
     from qcpinn_tpu_torch.ops.circuit import DVCircuit
 
-    for n, batches in ((N_QUBITS, (6 * 1024, 2 * (1024 // 3))), (16, LOOP_BATCHES)):
+    for n, batches in ((N_QUBITS, BLOCK_BATCHES), (16, LOOP_BATCHES)):
         eng = bk.BlockKernelCircuit(DVCircuit(n, 1, "cross_mesh", seed=42))
         for b in batches:
             m, p, (xr, xi, gr, gi) = block_inputs(eng, b, gen, dev)
@@ -1194,39 +1227,6 @@ def reduction_cases(dev, gen):
         y = sk.unrolled_fwd(xr, xi, *banks, mp)
         partials = sk.unrolled_bwd_partials(*y, gr, gi, *banks, mp)[-1]
         yield f"K4b_8q_B{b}", partials, sk.unrolled_reduce, sk.unrolled_reduce_ref
-
-
-def slab_sum_rates(tree: str):
-    """``--slab-sum-rates TREE``: the slab reductions of TREE's
-    ``qcpinn_tpu_torch`` at the slab_sums phase's edge shapes, then at the
-    main paths' shapes (``reduction_cases``), each a ``reduce_row``:
-    bit-equal to its plain version, timed by events and by graph beside
-    torch.sum; one JSON line. To compare two trees, run it once per tree in
-    one call, in turns (A, B, B, A)."""
-    import torch
-
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
-    sys.path.insert(0, os.path.abspath(tree))
-    import qcpinn_tpu_torch
-    from qcpinn_tpu_torch.ops import cuda_build
-
-    built = cuda_build.build_all(["block_chain", "block_chain_cluster", "gate_loop",
-                                  "unrolled_sv"])
-    registers = {k: v for k, v in ptxas_registers(built["gate_loop"][2]).items()
-                 if "slab_sum" in k or "reduce" in k}
-    dev = torch.device("cuda")
-    card_peaks = peaks(torch.cuda.get_device_name(0))
-    gen = torch.Generator(device=dev).manual_seed(7)
-    slab_sum_phase(dev, gen)
-    floor = launch_floor_phase()
-    rows = {}
-    for tag, partials, wrapper, ref in reduction_cases(dev, gen):
-        rows[tag] = reduce_row(wrapper, ref, partials, card_peaks, floor)
-        del partials
-        torch.cuda.empty_cache()
-    emit({"tree": tree, "package": os.path.dirname(qcpinn_tpu_torch.__file__),
-          "slab_sums": rows, "registers": registers, "card": nvidia_smi_line()})
 
 
 def loop_step_costs():
@@ -1283,17 +1283,39 @@ def loop_step_costs():
           "launch": lk.launch_plan(dev, lp, b), "card": nvidia_smi_line()})
 
 
-# (n, layers, hi_bits, B): the 12q pair's sizes and uneven splits, then the
+# (n, layers, hi_bits, B): the 12q pair's sizes and uneven splits (at B =
+# 682 too, where K1 takes tiles of 3 samples, the last one ragged), then the
 # cluster pair's: blocks 2-16 wide, narrow and wide splits at 10-12 qubits,
 # and 13-16 qubits
 BLOCK_SHAPES = (
     (10, 1, None, 37), (11, 1, None, 37), (12, 3, None, 37), (12, 1, None, 1),
     (12, 1, 7, 37), (12, 1, 5, 37),
+    (10, 1, None, 682), (11, 1, None, 682), (12, 3, None, 682), (12, 1, 7, 682),
+    (12, 1, 5, 682),
     (2, 1, None, 37), (3, 1, None, 37), (4, 1, None, 37), (4, 1, 1, 37), (4, 1, 3, 37),
     (8, 1, None, 37), (9, 1, None, 37), (10, 1, 7, 37), (12, 1, 2, 37), (12, 1, 8, 37),
     (13, 1, None, 37), (14, 1, None, 37), (15, 1, None, 37), (16, 1, None, 37),
 )
+# a 12q plan no ansatz makes, for K1's diag steps that no mat step precedes:
+# a diag first, a diag after a mat (folded into its product), a diag after
+# a diag, a mat last
+HAND_PLAN = (("diag", ""), ("mat", "lo"), ("diag", ""), ("diag", ""), ("mat", "hi"))
 CLUSTER_SHAPES = ((16, LOOP_BATCHES), (13, LOOP_BATCHES))
+# the 12q main path's evolves: 6 x 1024 stream rows and 2 x 341 value rows
+BLOCK_BATCHES = (6 * 1024, 2 * (1024 // 3))
+# the seeds of the 12q step_parity phase (bench.build's default, then one
+# more)
+STEP_SEEDS = (42, 7)
+
+
+def unit_states(b, h, l, gen, dev):
+    """Unit-norm states (re, im) and a random cotangent (re, im), [B, H, L]."""
+    import torch
+
+    x = torch.randn(4, b, h, l, generator=gen, device=dev)
+    nrm = torch.sqrt((x[0]**2 + x[1]**2).sum(dim=(1, 2), keepdim=True))
+    return [(x[0] / nrm).contiguous(), (x[1] / nrm).contiguous(),
+            x[2].contiguous(), x[3].contiguous()]
 
 
 def block_inputs(eng, b, gen, dev):
@@ -1304,24 +1326,103 @@ def block_inputs(eng, b, gen, dev):
     p = 0.3 * torch.randn(eng.circuit.num_params, generator=gen, device=dev)
     with torch.no_grad():
         m, ph = eng.kernel_inputs(p)
-    hh, ll = 1 << eng.plan.hb, 1 << eng.plan.lb
-    x = torch.randn(4, b, hh, ll, generator=gen, device=dev)
-    nrm = torch.sqrt((x[0]**2 + x[1]**2).sum(dim=(1, 2), keepdim=True))
-    states = [(x[0] / nrm).contiguous(), (x[1] / nrm).contiguous(),
-              x[2].contiguous(), x[3].contiguous()]
-    return m, ph, states
+    return m, ph, unit_states(b, 1 << eng.plan.hb, 1 << eng.plan.lb, gen, dev)
 
 
-def check_block(bk, eng, b, gen, dev, tag, inputs=None):
-    """Both block-chain wrappers (whichever pair the plan goes to) against
-    the plain versions: forward <= FWD_TOL absolute, every backward output
-    <= BWD_RTOL * max|ref|, the backward bit-equal across two runs."""
+def block_main_inputs(bk, b, dev):
+    """The 12q main path's plan and ``block_inputs`` at batch ``b``, from a
+    generator of their own seeded with ``b``: the same inputs in phase 4
+    and in ``--rates``, whatever ran before, on every tree."""
     import torch
 
-    plan = eng.plan
-    m, ph, (xr, xi, gr, gi) = inputs or block_inputs(eng, b, gen, dev)
+    from qcpinn_tpu_torch.ops.circuit import DVCircuit
+
+    eng = bk.BlockKernelCircuit(DVCircuit(N_QUBITS, 1, "cross_mesh", seed=42))
+    gen = torch.Generator(device=dev).manual_seed(b)
+    return eng.plan, block_inputs(eng, b, gen, dev)
+
+
+def hand_plan_inputs(bk, b, gen, dev):
+    """HAND_PLAN at 12 qubits (6 hi bits) and its inputs: Haar-like random
+    unitaries (QR of Gaussian matrices), random phases, ``unit_states``."""
+    import torch
+
+    steps, mats, diags = [], [], []
+    for kind, axis in HAND_PLAN:
+        if kind == "mat":
+            steps.append(bk.KStep("mat", axis, len(mats)))
+            mats.append((0, axis))
+        else:
+            steps.append(bk.KStep("diag", idx=len(diags)))
+            diags.append(0)
+    plan = bk.KPlan(12, 6, 6, tuple(steps), tuple(mats), tuple(diags))
+    z = torch.randn(len(mats), 64, 64, 2, generator=gen, device=dev)
+    q = torch.linalg.qr(torch.view_as_complex(z))[0]
+    m = torch.stack([q.real, q.imag], dim=1).reshape(-1).contiguous()
+    phi = 2 * math.pi * torch.rand(len(diags), 64, 64, generator=gen, device=dev)
+    p = torch.stack([torch.cos(phi), torch.sin(phi)], dim=1).reshape(-1).contiguous()
+    return plan, (m, p, unit_states(b, 64, 64, gen, dev))
+
+
+def fwd_launch(bk, plan, b, dev):
+    """K1's launch at batch ``b`` (``block_kernel.fwd_launch``, what the
+    wrapper launches with): samples a tile, matrix buffers, shared bytes a
+    CTA and grid."""
+    import dataclasses
+
+    return dataclasses.asdict(bk.fwd_launch(dev, plan, b))
+
+
+def k1_tile_sweep(bk, plan, inputs, want, dev):
+    """K1 on ``inputs`` at every tile of 1 to FWD_TILE samples that fits
+    beside its matrix buffers, launched past the wrapper (so no launch is
+    counted), each held to FWD_TOL against the plain version's ``want``
+    and timed as phase 4 times K1 (events, the graph timer under 1 ms);
+    ``same_as_launched`` says whether it is bit-equal to the tile the
+    wrapper picks. Returns {T: row}."""
+    import dataclasses
+
+    import torch
+
+    m, p, (xr, xi, _, _) = inputs
+    picked = bk.fwd_launch(dev, plan, xr.shape[0])
+    launched = bk.block_chain_fwd(xr, xi, m, p, plan)
+    hl, km = 1 << plan.n, 1 << max(plan.hb, plan.lb)
+    rows = {}
+    for t in range(1, bk.FWD_TILE + 1):
+        smem = 4 * (2 * t * hl + 2 * picked.matrix_buffers * km * km)
+        if smem > bk.SMEM_MAX:
+            continue
+        launch = dataclasses.replace(
+            picked, samples_per_tile=t, smem_per_cta=smem,
+            grid=min(bk.grid_size(dev, xr.shape[0]), -(-xr.shape[0] // t)))
+        y = torch.empty_like(xr), torch.empty_like(xi)
+
+        def run():
+            bk._launch_fwd(xr, xi, m, p, *y, plan, launch)
+
+        run()
+        torch.cuda.synchronize()
+        err = max((a - r).abs().max().item() for a, r in zip(y, want))
+        if not err <= FWD_TOL:
+            raise SystemExit(f"block_chain_fwd T={t}: max abs err {err} > {FWD_TOL}")
+        rows[t] = {"max_abs_err": err, "grid": launch.grid,
+                   "same_as_launched": all(torch.equal(a, c) for a, c in zip(y, launched)),
+                   **timed(run)}
+    return rows
+
+
+def check_block(bk, plan, inputs, tag):
+    """Both block-chain wrappers (whichever pair the plan goes to) against
+    the plain versions on ``inputs`` (``block_inputs``): forward <= FWD_TOL
+    absolute, every backward output <= BWD_RTOL * max|ref|, each kernel
+    bit-equal across two runs."""
+    import torch
+
+    m, ph, (xr, xi, gr, gi) = inputs
     mct = bk.conj_transpose(plan, m)
     got = bk.block_chain_fwd(xr, xi, m, ph, plan)
+    rerun = bk.block_chain_fwd(xr, xi, m, ph, plan)
     want = bk.block_chain_fwd_ref(xr, xi, m, ph, plan)
     e_fwd = max((a - r).abs().max().item() for a, r in zip(got, want))
     bwd = bk.block_chain_bwd(*got, gr, gi, mct, ph, plan)
@@ -1336,17 +1437,20 @@ def check_block(bk, eng, b, gen, dev, tag, inputs=None):
         e_abs, e_rel = max(e_abs, e), max(e_rel, e / scale)
     if not e_fwd <= FWD_TOL:
         raise SystemExit(f"{tag}: block_chain_fwd err {e_fwd} > {FWD_TOL}")
+    if not all(torch.equal(a, c) for a, c in zip(got, rerun)):
+        raise SystemExit(f"{tag}: block_chain_fwd is not deterministic")
     if not all(torch.equal(a, c) for a, c in zip(bwd, again)):
         raise SystemExit(f"{tag}: block_chain_bwd is not deterministic")
     return {"fwd_abs": e_fwd, "bwd_abs": e_abs, "bwd_rel": e_rel}
 
 
-def block_launch(bk, plan):
-    """The pair that runs ``plan`` and its launch shape."""
+def block_launch(bk, plan, b, dev):
+    """The pair that runs ``plan`` and its launch shape at batch ``b``."""
     if not bk.uses_cluster_pair(plan):
         tile, bufs, smem = bk.bwd_config(plan)
-        return {"pair": "12q", "bwd_samples_per_tile": tile, "bwd_mct_buffers": bufs,
-                "bwd_smem": smem}
+        return {"pair": "12q",
+                **{f"fwd_{k}": v for k, v in fwd_launch(bk, plan, b, dev).items()},
+                "bwd_samples_per_tile": tile, "bwd_mct_buffers": bufs, "bwd_smem": smem}
     cfg = bk.cluster_config(plan)
     return {"pair": "cluster", "fwd_cluster": cfg.fwd_cluster,
             "bwd_cluster": cfg.bwd_cluster, "split": "H" if cfg.part_hi else "L",
@@ -1368,6 +1472,29 @@ def lib_chain(plan, xc, mats_c, ph_c):
     return s
 
 
+def complex_inputs(bk, plan, m, p, xr, xi):
+    """The library's inputs: the state, the matrices and the phase planes
+    as complex tensors."""
+    import torch
+
+    mats, phases = bk.unpack(plan, m, p)
+    return (torch.complex(xr, xi), [torch.complex(a, c) for a, c in mats],
+            [torch.complex(a, c) for a, c in phases])
+
+
+def lib_chain_forward(plan, xc, mats_c, ph_c):
+    """``autograd_timed``'s forward of ``lib_chain``: fresh leaves for the
+    state, the matrices and the phase planes."""
+
+    def forward():
+        xg = xc.clone().requires_grad_(True)
+        mg = [t.clone().requires_grad_(True) for t in mats_c]
+        pg = [t.clone().requires_grad_(True) for t in ph_c]
+        return lib_chain(plan, xg, mg, pg), [xg, *mg, *pg]
+
+    return forward
+
+
 def chain_work(bk, plan, b, m, p):
     """(forward flops, forward bytes, backward flops, backward bytes) of the
     block chain for B samples: a mat step is 8 H L K flops a sample (a
@@ -1385,9 +1512,80 @@ def chain_work(bk, plan, b, m, p):
             3 * b * mat + 20 * b * h * l * plan.n_diags, 6 * state + small + slab)
 
 
+def digest(tensors):
+    """sha256 of the tensors' bytes, in order: equal digests, bit-equal
+    outputs."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def k1_row(bk, plan, inputs, card_peaks, registers):
+    """K1 (``block_chain_fwd``) on ``inputs`` (``block_main_inputs``)
+    against its plain version (<= FWD_TOL, bit-equal across two runs),
+    timed beside the plain version and the complex einsum chain, with its
+    bound at a third of the TF32 tensor-core peak (3xTF32, what it runs
+    on) beside the FP32 SIMT bound, its registers and the sha256 of its
+    output. Returns the row, K1's output and the plain version's."""
+    import torch
+
+    m, p, (xr, xi, _, _) = inputs
+    b = xr.shape[0]
+    got = bk.block_chain_fwd(xr, xi, m, p, plan)
+    rerun = bk.block_chain_fwd(xr, xi, m, p, plan)
+    want = bk.block_chain_fwd_ref(xr, xi, m, p, plan)
+    torch.cuda.synchronize()
+    err = max((a - r).abs().max().item() for a, r in zip(got, want))
+    if not err <= FWD_TOL:
+        raise SystemExit(f"block_chain_fwd B={b}: max abs err {err} > {FWD_TOL}")
+    if not all(torch.equal(a, c) for a, c in zip(got, rerun)):
+        raise SystemExit(f"block_chain_fwd B={b} is not deterministic")
+    xc, mats_c, ph_c = complex_inputs(bk, plan, m, p, xr, xi)
+    f_ops, f_bytes, _, _ = chain_work(bk, plan, b, m, p)
+    fb, fby = bound(f_ops, f_bytes, card_peaks, flop_rate=card_peaks[2] / 3)
+    row = {
+        "max_abs_err": err, "tol": FWD_TOL,
+        **timed(lambda: bk.block_chain_fwd(xr, xi, m, p, plan)),
+        "plain_ms": time_ms(lambda: bk.block_chain_fwd_ref(xr, xi, m, p, plan)),
+        **timed(lambda: lib_chain(plan, xc, mats_c, ph_c), prefix="library_"),
+        "library": "the complex einsum chain (cuBLAS, TF32 off)",
+        "bound_ms": fb, "bound_by": fby, "bound_rate": TC_RATE,
+        # the same work on the FP32 SIMT units, where K1 ran before
+        "bound_fp32_ms": bound(f_ops, f_bytes, card_peaks)[0],
+        "registers": registers.get("block_chain_fwd_kernel"),
+        "sha256": digest(got),
+    }
+    return row, got, want
+
+
+def sass_mma_counts(lib_path):
+    """{kernel: tensor-core (HMMA) instructions in its SASS}, read by the
+    toolkit's cuobjdump; None where the toolkit has none."""
+    from qcpinn_tpu_torch.ops import cuda_build
+
+    tool = os.path.join(os.path.dirname(cuda_build.nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
+                          check=True).stdout
+    counts, fn = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn and "HMMA" in ln:
+            counts[fn] += 1
+    return counts
+
+
 def build_phase(names):
-    """Phase ``build``: one nvcc per source, started together; returns
-    cuda_build.build_all's result."""
+    """Phase ``build``: one nvcc per source, started together; each
+    kernel's registers and spills (ptxas) and tensor-core instructions
+    (``sass_mma_counts``). Returns cuda_build.build_all's result."""
     from qcpinn_tpu_torch.ops import cuda_build
 
     built = cuda_build.build_all(names)
@@ -1395,14 +1593,16 @@ def build_phase(names):
         f"qcpinn_tpu_torch/ops/csrc/{name}.cu": {
             "seconds": seconds, "library": os.path.relpath(path),
             "ptxas": [ln.strip() for ln in report.splitlines()
-                      if "registers" in ln or "spill" in ln]}
+                      if "registers" in ln or "spill" in ln],
+            "sass_hmma": sass_mma_counts(path)}
         for name, (path, seconds, report) in built.items()}})
     return built
 
 
 def kernel_shapes_phase(dev, gen):
-    """Phase ``kernel_shapes``: every BLOCK_SHAPES row through both
-    block-chain wrappers against the plain versions (check_block)."""
+    """Phase ``kernel_shapes``: every BLOCK_SHAPES row and HAND_PLAN (at B =
+    682 and B = 5) through both block-chain wrappers against the plain
+    versions (check_block)."""
     from qcpinn_tpu_torch.ops import block_kernel as bk
     from qcpinn_tpu_torch.ops.circuit import DVCircuit
 
@@ -1411,8 +1611,13 @@ def kernel_shapes_phase(dev, gen):
         eng = bk.BlockKernelCircuit(
             DVCircuit(n, layers, "cross_mesh", seed=42 if n >= 7 else None), hi_bits=hb)
         tag = f"n{n}_hb{eng.plan.hb}_layers{layers}_B{b}"
-        shape_errs[tag] = {**check_block(bk, eng, b, gen, dev, tag),
-                           **block_launch(bk, eng.plan)}
+        shape_errs[tag] = {**check_block(bk, eng.plan, block_inputs(eng, b, gen, dev), tag),
+                           **block_launch(bk, eng.plan, b, dev)}
+    for b in (682, 5):
+        plan, inputs = hand_plan_inputs(bk, b, gen, dev)
+        tag = f"hand_plan_{'_'.join(k + a for k, a in HAND_PLAN)}_B{b}"
+        shape_errs[tag] = {**check_block(bk, plan, inputs, tag),
+                           **block_launch(bk, plan, b, dev)}
     emit({"phase": "kernel_shapes", "tol": {"fwd_abs": FWD_TOL, "bwd": f"{BWD_RTOL}*max|ref|"},
           "results": shape_errs})
 
@@ -1439,6 +1644,55 @@ def cluster_kernels():
     print(smi, flush=True)
 
 
+def rates(tree: str):
+    """``--rates TREE``: with TREE's ``qcpinn_tpu_torch``, the rows of
+    phase 4 and step_parity that compare two trees: the slab sums at the
+    slab_sums phase's edge shapes, then at the main paths' shapes
+    (``reduction_cases``, each a ``reduce_row``); K1 at the 12q main
+    path's shapes (each a ``k1_row`` on ``block_main_inputs``) with the
+    sha256 of K2's outputs on the same inputs (the backward kernel and its
+    slab sum), so that two trees' K2 can be held bit-equal; and the 12q
+    ``step_parity`` at each of STEP_SEEDS. One JSON line. To compare two
+    trees, run it once per tree in one call, in turns (A, B, B, A)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+    sys.path.insert(0, os.path.abspath(tree))
+    import qcpinn_tpu_torch
+    from qcpinn_tpu_torch import bench
+    from qcpinn_tpu_torch.ops import block_kernel as bk
+    from qcpinn_tpu_torch.ops import cuda_build
+
+    built = cuda_build.build_all(["block_chain", "block_chain_cluster", "gate_loop",
+                                  "unrolled_sv"])
+    registers = ptxas_registers(built["block_chain"][2])
+    dev = torch.device("cuda")
+    card_peaks = peaks(torch.cuda.get_device_name(0))
+    gen = torch.Generator(device=dev).manual_seed(7)
+    slab_sum_phase(dev, gen)
+    floor = launch_floor_phase()
+    slab_sums = {}
+    for tag, partials, wrapper, ref in reduction_cases(dev, gen):
+        slab_sums[tag] = reduce_row(wrapper, ref, partials, card_peaks, floor)
+        del partials
+        torch.cuda.empty_cache()
+    k1 = {}
+    for b in BLOCK_BATCHES:
+        plan, inputs = block_main_inputs(bk, b, dev)
+        m, p, states = inputs
+        k1[b], _, _ = k1_row(bk, plan, inputs, card_peaks, registers)
+        k2 = bk.block_chain_bwd(*states, bk.conj_transpose(plan, m), p, plan)
+        k1[b]["k2_sha256"] = digest(k2)
+        del inputs, states, k2
+        torch.cuda.empty_cache()
+    parity = {seed: step_parity(bench, N_QUBITS, "block_kernel", seed)
+              for seed in STEP_SEEDS}
+    emit({"tree": tree, "package": os.path.dirname(qcpinn_tpu_torch.__file__),
+          "slab_sums": slab_sums, "block_chain_fwd": k1, "step_parity": parity,
+          "registers": registers, "card": nvidia_smi_line()})
+
+
 def cluster_phase(dev, gen, card_peaks, smi, registers, floor):
     """Phase ``cluster_kernels``; returns its results by (n, B). ``floor``:
     the launch floor (ms)."""
@@ -1456,14 +1710,11 @@ def cluster_phase(dev, gen, card_peaks, smi, registers, floor):
             tag = f"{n}q_B{b}"
             m, p, states = block_inputs(eng, b, gen, dev)
             xr, xi, gr, gi = states
-            errs = check_block(bk, eng, b, gen, dev, tag, (m, p, states))
+            errs = check_block(bk, plan, (m, p, states), tag)
             mct = bk.conj_transpose(plan, m)
             y = bk.block_chain_fwd(xr, xi, m, p, plan)
             y_ref = bk.block_chain_fwd_ref(xr, xi, m, p, plan)
-            mats, phases = bk.unpack(plan, m, p)
-            mats_c = [torch.complex(a, c) for a, c in mats]
-            ph_c = [torch.complex(a, c) for a, c in phases]
-            xc = torch.complex(xr, xi)
+            xc, mats_c, ph_c = complex_inputs(bk, plan, m, p, xr, xi)
             f_ops, f_bytes, b_ops, b_bytes = chain_work(bk, plan, b, m, p)
             # the products run on tensor cores in 3xTF32: three TF32 passes
             # per f32 product
@@ -1485,22 +1736,17 @@ def cluster_phase(dev, gen, card_peaks, smi, registers, floor):
                 "grid_clusters": min(b, bk.max_clusters(dev, plan, bwd=False)),
                 "registers": registers.get("block_cluster_fwd_kernel"),
             }}
-            xg = xc.clone().requires_grad_(True)
-            mg = [t.clone().requires_grad_(True) for t in mats_c]
-            pg = [t.clone().requires_grad_(True) for t in ph_c]
             gc = torch.complex(gr, gi)
-            y_lib = lib_chain(plan, xg, mg, pg)
             _, _, partials = bk.block_chain_bwd_partials(*y, gr, gi, mct, p, plan)
+            kern = timed(lambda: bk.block_chain_bwd_partials(*y, gr, gi, mct, p, plan),
+                         reps=reps)
             row["bwd"] = {
                 "max_abs_err": errs["bwd_abs"], "max_rel_err": errs["bwd_rel"],
-                "tol": f"{BWD_RTOL}*max|ref|",
-                **timed(lambda: bk.block_chain_bwd_partials(
-                    *y, gr, gi, mct, p, plan), reps=reps),
+                "tol": f"{BWD_RTOL}*max|ref|", **kern,
                 "plain_ms": time_ms(lambda: bk.block_chain_bwd_ref(
                     *y_ref, gr, gi, mct, p, plan), reps=5),
-                **timed(lambda: torch.autograd.grad(
-                    y_lib, [xg, *mg, *pg], grad_outputs=gc, retain_graph=True),
-                    reps=reps, prefix="library_", capturable=False),
+                **autograd_timed(lib_chain_forward(plan, xc, mats_c, ph_c), gc,
+                                 "graph_ms" in kern, reps=reps),
                 "library": "autograd backward alone of the complex einsum chain",
                 "bound_ms": bb, "bound_by": bby, "bound_rate": TC_RATE,
                 "bound_fp32_ms": bound(b_ops, b_bytes, card_peaks)[0],
@@ -1511,7 +1757,7 @@ def cluster_phase(dev, gen, card_peaks, smi, registers, floor):
             row["reduce"] = reduce_row(bk.block_chain_reduce, bk.block_chain_reduce_ref,
                                        partials, card_peaks, floor)
             out[tag] = row
-            del y, y_ref, y_lib, xg, mg, pg, gc, xc, states, partials
+            del y, y_ref, gc, xc, mats_c, ph_c, states, partials
             torch.cuda.empty_cache()
     emit({"phase": "cluster_kernels", "card": smi, "results": out})
     return out
@@ -1659,15 +1905,14 @@ def main():
         return loop_step_costs()
     if sys.argv[1:] == ["--cluster-kernels"]:
         return cluster_kernels()
-    if len(sys.argv) == 3 and sys.argv[1] == "--slab-sum-rates":
-        return slab_sum_rates(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--rates":
+        return rates(sys.argv[2])
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import qcpinn_tpu_torch  # noqa: F401  (sets TF32 off)
     from qcpinn_tpu_torch import bench
     from qcpinn_tpu_torch.ops import block_kernel as bk
-    from qcpinn_tpu_torch.ops.circuit import DVCircuit
 
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -1699,50 +1944,18 @@ def main():
 
     # -- 4. kernels vs plain versions at the main path's shapes ------------
     registers = ptxas_registers(built["block_chain"][2])
-    circ = DVCircuit(N_QUBITS, 1, "cross_mesh", seed=42)
-    eng = bk.BlockKernelCircuit(circ)
-    plan = eng.plan
-    params = 0.3 * torch.randn(circ.num_params, generator=gen, device=dev)
-    with torch.no_grad():
-        m, p = eng.kernel_inputs(params)
-    mct = bk.conj_transpose(plan, m)
-    mats, phases = bk.unpack(plan, m, p)
-    h, l = 1 << plan.hb, 1 << plan.lb
-    mats_bytes = 4 * m.numel()
-    ph_bytes = 4 * p.numel()
-    mat_flops = sum(8 * h * l * plan.mat_dim(i) for i in range(plan.n_mats))
-
-    mats_c = [torch.complex(mr, mi) for mr, mi in mats]
-    ph_c = [torch.complex(c, s) for c, s in phases]
     per_kernel = {"block_chain_fwd": {}, "block_chain_bwd": {},
                   "block_chain_reduce": {}}
-    for b in (6 * 1024, 2 * (1024 // 3)):
-        xr = torch.randn(b, h, l, generator=gen, device=dev)
-        xi = torch.randn(b, h, l, generator=gen, device=dev)
-        nrm = torch.sqrt((xr**2 + xi**2).sum(dim=(1, 2), keepdim=True))
-        xr, xi = (xr / nrm).contiguous(), (xi / nrm).contiguous()
-        gr = torch.randn(b, h, l, generator=gen, device=dev)
-        gi = torch.randn(b, h, l, generator=gen, device=dev)
+    for b in BLOCK_BATCHES:
+        plan, inputs = block_main_inputs(bk, b, dev)
+        m, p, (xr, xi, gr, gi) = inputs
+        mct = bk.conj_transpose(plan, m)
 
         # K1 forward
-        yr, yi = bk.block_chain_fwd(xr, xi, m, p, plan)
-        ryr, ryi = bk.block_chain_fwd_ref(xr, xi, m, p, plan)
-        torch.cuda.synchronize()
-        err = max((yr - ryr).abs().max().item(), (yi - ryi).abs().max().item())
-        if not err <= FWD_TOL:
-            raise SystemExit(f"block_chain_fwd B={b}: max abs err {err} > {FWD_TOL}")
-        xc = torch.complex(xr, xi)
-        state_bytes = 4 * b * h * l
-        fb, fby = bound(b * (mat_flops + 6 * h * l * plan.n_diags),
-                        4 * state_bytes + mats_bytes + ph_bytes, card_peaks)
+        row, (yr, yi), (ryr, ryi) = k1_row(bk, plan, inputs, card_peaks, registers)
         per_kernel["block_chain_fwd"][b] = {
-            "max_abs_err": err, "tol": FWD_TOL,
-            **timed(lambda: bk.block_chain_fwd(xr, xi, m, p, plan)),
-            "plain_ms": time_ms(
-                lambda: bk.block_chain_fwd_ref(xr, xi, m, p, plan)),
-            **timed(lambda: lib_chain(plan, xc, mats_c, ph_c), prefix="library_"),
-            "bound_ms": fb, "bound_by": fby,
-        }
+            **row, **fwd_launch(bk, plan, b, dev),
+            "tile_sweep": k1_tile_sweep(bk, plan, inputs, (ryr, ryi), dev)}
 
         # K2 backward (kernel alone) + the reduction
         gxr, gxi, partials = bk.block_chain_bwd_partials(
@@ -1769,34 +1982,24 @@ def main():
         if not (torch.equal(gxr, got[0]) and torch.equal(gxi, got[1])
                 and torch.equal(red, torch.cat([got[2], got[3]]))):
             raise SystemExit("block_chain_bwd is not deterministic")
-        slab = partials.shape[1]
+        _, _, bwd_flops, bwd_bytes = chain_work(bk, plan, b, m, p)
         # three complex products a mat step: the inputs hold no forward
         # state, so each step's input is recovered (one product) before dM
         # and the pullback (two more); K2 runs them on tensor cores in
         # 3xTF32, three TF32 passes per f32 product
-        bwd_flops = 3 * b * mat_flops + 20 * b * h * l * plan.n_diags
-        bwd_bytes = 6 * state_bytes + mats_bytes + ph_bytes + 4 * slab
         bb, bby = bound(bwd_flops, bwd_bytes, card_peaks, flop_rate=card_peaks[2] / 3)
         tile, bufs, bwd_smem = bk.bwd_config(plan)
-        xg = xc.clone().requires_grad_(True)
-        mg = [m.clone().requires_grad_(True) for m in mats_c]
-        pg = [p.clone().requires_grad_(True) for p in ph_c]
-        gc = torch.complex(gr, gi)
-        # the library's backward alone: its graph is built once, outside
-        # the timed calls, as the kernel's forward is outside K2's time
-        y_lib = lib_chain(plan, xg, mg, pg)
-
-        def lib_bwd():
-            return torch.autograd.grad(y_lib, [xg, *mg, *pg], grad_outputs=gc,
-                                       retain_graph=True)
-
+        xc, mats_c, ph_c = complex_inputs(bk, plan, m, p, xr, xi)
+        kern = timed(lambda: bk.block_chain_bwd_partials(yr, yi, gr, gi, mct, p, plan))
         per_kernel["block_chain_bwd"][b] = {
             "max_abs_err": err, "max_rel_err": worst, "tol": f"{BWD_RTOL}*max|ref|",
-            **timed(lambda: bk.block_chain_bwd_partials(
-                yr, yi, gr, gi, mct, p, plan)),
+            **kern,
             "plain_ms": time_ms(lambda: bk.block_chain_bwd_ref(
                 ryr, ryi, gr, gi, mct, p, plan)),
-            **timed(lib_bwd, prefix="library_", capturable=False),
+            # the library's backward alone: its graph is built once, outside
+            # the timed calls, as the kernel's forward is outside K2's time
+            **autograd_timed(lib_chain_forward(plan, xc, mats_c, ph_c),
+                             torch.complex(gr, gi), "graph_ms" in kern),
             "library": "autograd backward alone of the complex einsum chain",
             "bound_ms": bb, "bound_by": bby,
             "bound_rate": TC_RATE,
@@ -1809,11 +2012,14 @@ def main():
         }
         per_kernel["block_chain_reduce"][b] = reduce_row(
             bk.block_chain_reduce, bk.block_chain_reduce_ref, partials, card_peaks, floor)
+        del inputs, xr, xi, gr, gi, yr, yi, ryr, ryi, out, got, partials, red, xc
+        torch.cuda.empty_cache()
     emit({"phase": "kernels", "n_qubits": N_QUBITS, "card": smi,
           "results": per_kernel})
 
     # -- 5. one train step: kernels vs the plain block engine --------------
-    emit({"phase": "step_parity", **step_parity(bench, N_QUBITS, "block_kernel")})
+    emit({"phase": "step_parity", "by_seed": {
+        seed: step_parity(bench, N_QUBITS, "block_kernel", seed) for seed in STEP_SEEDS}})
 
     # -- 6. the main path: the bench train step ----------------------------
     trainer = bench.build()
@@ -1857,7 +2063,7 @@ def main():
         "block_chain_bwd": "qcpinn_tpu/ops/block_pallas.py:222",
         "block_chain_reduce": "qcpinn_tpu/ops/block_pallas.py:241",
     }
-    main_b = 6 * 1024
+    main_b = BLOCK_BATCHES[0]
     kernels = []
     for k, by_b in per_kernel.items():
         r = by_b[main_b]
@@ -1870,8 +2076,8 @@ def main():
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             **{key: r[key] for key in GRAPH_KEYS if key in r},
             "batch": main_b,
-            **{key: r[key] for key in ("bound_rate", "bound_fp32_ms", "smem_per_cta",
-                                       "registers")
+            **{key: r[key] for key in ("bound_rate", "bound_fp32_ms", "samples_per_tile",
+                                       "grid", "smem_per_cta", "registers")
                if key in r},
             "by_batch": {str(bb): v for bb, v in by_b.items()},
         })

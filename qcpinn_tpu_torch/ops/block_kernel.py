@@ -7,15 +7,19 @@ hand in CUDA for Hopper (sm_90a), share one slab reduction:
 - ``csrc/block_chain.cu``, the 12-qubit pair, takes 10 <= n <= 12 with both
   blocks 32 to 128 wide (the plans ``auto`` sends to ``block_kernel``).
   ``block_chain_fwd_kernel`` replaces ``block_pallas.py::_forward_kernel``:
-  each CTA keeps one sample's split re/im ``[H, L]`` state in shared memory
-  for the whole chain, so the state is read and written once.
+  a persistent CTA per SM keeps a tile of samples' split re/im ``[H, L]``
+  states in shared memory for the whole chain (:func:`fwd_config`), so the
+  state is read and written once; each mat step is one complex product on
+  the tensor cores in 3xTF32 (a TF32 high and low part of each f32
+  operand, hi*hi + hi*lo + lo*hi in f32), with the next step's matrix
+  streaming in meanwhile and a diag step that follows it applied to its
+  sums before they are stored.
   ``block_chain_bwd_kernel`` replaces ``block_pallas.py::_backward_kernel``.
   It sweeps the plan in reverse with O(1) state memory: the matrices
   arrive conj-transposed, and one contraction with them both recovers each
   step's input and pulls the cotangent back. Its three complex products
-  per mat step run on the tensor cores in 3xTF32 (a TF32 high and low part
-  of each f32 operand, hi*hi + hi*lo + lo*hi in f32), on a tile of samples
-  per CTA (:func:`bwd_config`).
+  per mat step run on the tensor cores as the forward's do (one product
+  routine serves both), on a tile of samples per CTA (:func:`bwd_config`).
 - ``csrc/block_chain_cluster.cu``, the cluster pair, takes every other plan
   with n <= 16 at any hi/lo split (:func:`uses_cluster_pair`): one sample
   is held by a thread-block cluster of 1 to 8 CTAs, split along the wider
@@ -291,7 +295,7 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(cuda_build.build("block_chain")[0])
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.qc_block_chain_fwd.argtypes = [p] * 6 + [i, i, i, p, i, p]
+        lib.qc_block_chain_fwd.argtypes = [p] * 6 + [i, i, i, p, i, i, i, i, p]
         lib.qc_block_chain_bwd.argtypes = [p] * 9 + [i] * 5 + [p, i, i, p]
         lib.qc_block_chain_reduce.argtypes = [p, p, i, i, p]
         for fn in (lib.qc_block_chain_fwd, lib.qc_block_chain_bwd,
@@ -389,6 +393,55 @@ def cluster_config(plan: KPlan) -> ClusterConfig:
         return 4 * (planes * (1 << plan.n) // c + _BC_STAGE_FLOATS)
 
     return ClusterConfig(fwd, bwd, plan.hb >= plan.lb, smem(2, fwd), smem(4, bwd))
+
+
+FWD_TILE = 4  # QC_FWD_TILE in csrc/block_chain.cu: K1's register tile
+SMEM_MAX = 232448  # QC_SMEM_MAX: a CTA's opt-in shared memory on sm_90 (227 KiB)
+
+
+def fwd_config(plan: KPlan, batch: int, sms: int) -> Tuple[int, int, int]:
+    """(samples per tile, matrix buffers, shared bytes) of one forward CTA
+    of the 12q pair for ``batch`` samples on a card of ``sms`` SMs, the
+    rule :func:`fwd_launch` launches with (the CUDA entry only checks that
+    the tile fits): two [K, K] re/im matrix buffers where both blocks are
+    at most 64 wide, else one; of the tiles of 1 to FWD_TILE samples whose
+    [H, L] re/im planes fit beside them, the one that minimises rounds *
+    (T + 1), with rounds the most tiles a CTA takes (a tile costs about
+    one sample more than its samples: the matrix fragments it splits, its
+    barriers), ties to the larger T. At 12 qubits on 132 SMs: 4 samples at
+    B = 6144, 3 at B = 682."""
+    km = 1 << max(plan.hb, plan.lb)
+    bufs = 2 if km <= 64 else 1
+    mat_floats, sample_floats = 2 * bufs * km * km, 2 * (1 << plan.n)
+    g = max(1, min(batch, sms))
+
+    def cost(t: int) -> int:
+        tiles = -(-batch // t)
+        return -(-tiles // g) * (t + 1)
+
+    t_max = min(FWD_TILE, (SMEM_MAX // 4 - mat_floats) // sample_floats)
+    tile = min(range(t_max, 0, -1), key=cost)  # the first minimum: the larger T
+    return tile, bufs, 4 * (mat_floats + sample_floats * tile)
+
+
+@dataclasses.dataclass(frozen=True)
+class FwdLaunch:
+    """K1's launch: samples a tile, matrix buffers, shared bytes a CTA and
+    the grid (CTAs, each walking the tiles)."""
+
+    samples_per_tile: int
+    matrix_buffers: int
+    smem_per_cta: int
+    grid: int
+
+
+def fwd_launch(device: torch.device, plan: KPlan, b: int) -> FwdLaunch:
+    """The launch :func:`block_chain_fwd` makes for ``b`` samples of
+    ``plan`` (a 12q-pair plan) on ``device``: :func:`fwd_config` on the
+    card's SM count, and no more CTAs than tiles."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    tile, bufs, smem = fwd_config(plan, b, sms)
+    return FwdLaunch(tile, bufs, smem, min(grid_size(device, b), -(-b // tile)))
 
 
 def bwd_config(plan: KPlan) -> Tuple[int, int, int]:
@@ -494,20 +547,29 @@ def block_chain_fwd(xr, xi, m, p, plan: KPlan):
         _raise_on(lib, err, "block_cluster_fwd")
         LAUNCHES["block_cluster_fwd"] += 1
         return yr, yi
-    lib = _lib()
-    err = lib.qc_block_chain_fwd(
-        xr.data_ptr(), xi.data_ptr(), m.data_ptr(), p.data_ptr(),
-        yr.data_ptr(), yi.data_ptr(), b, 1 << plan.hb, 1 << plan.lb,
-        steps.ctypes.data, len(plan.steps), stream,
-    )
-    _raise_on(lib, err, "block_chain_fwd")
+    _launch_fwd(xr, xi, m, p, yr, yi, plan, fwd_launch(xr.device, plan, b))
     LAUNCHES["block_chain_fwd"] += 1
     return yr, yi
 
 
+def _launch_fwd(xr, xi, m, p, yr, yi, plan: KPlan, launch: FwdLaunch) -> None:
+    """Launch K1 (the 12q pair's forward) with ``launch``'s tile, matrix
+    buffers and grid; the CUDA entry refuses a tile that does not fit."""
+    lib = _lib()
+    err = lib.qc_block_chain_fwd(
+        xr.data_ptr(), xi.data_ptr(), m.data_ptr(), p.data_ptr(),
+        yr.data_ptr(), yi.data_ptr(), xr.shape[0], 1 << plan.hb, 1 << plan.lb,
+        _step_table(plan)[0].ctypes.data, len(plan.steps), launch.samples_per_tile,
+        launch.matrix_buffers, launch.grid,
+        torch.cuda.current_stream(xr.device).cuda_stream,
+    )
+    _raise_on(lib, err, "block_chain_fwd")
+
+
 def grid_size(device: torch.device, b: int) -> int:
-    """Persistent backward grid of the 12q pair: one CTA per SM (its shared
-    memory holds a tile of samples), never more than the batch."""
+    """Persistent grid of the 12q pair: one CTA per SM (its shared memory
+    holds a tile of samples), never more than the batch. The forward
+    launches fewer where the batch has fewer tiles (:func:`fwd_launch`)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(b, sms))
 

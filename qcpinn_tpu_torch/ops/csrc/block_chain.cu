@@ -12,20 +12,33 @@
 // 64x64x64 complex product per sample, so the chain does ~21 FMA per byte
 // of state it reads: arithmetic, not device memory, is the limit. Both
 // kernels keep every sample's state in shared memory for the whole chain
-// (one read and one write of device memory).
+// (one read and one write of device memory), and both run their products
+// on the tensor cores in 3xTF32: each f32 operand splits into a TF32 high
+// part and a TF32 low part of the remainder, and hi*hi + hi*lo + lo*hi
+// accumulate in f32 (mma.sync m16n8k8; tf32_mma.cuh, shared with the
+// cluster pair), which keeps the f32 parity the port is held to (a single
+// TF32 pass would not). The one product routine, contract_tile, serves
+// K1's mat steps and K2's recoveries and pullbacks alike. What is left
+// around the products is splitting operands, feeding them from shared
+// memory and waiting on barriers; the designs below cut each of those.
 //
-// K1 runs on the FP32 units: each of 256 threads holds a 4x4 complex
-// register tile per product (16 FMA per 2 shared loads) on rows padded to
-// an odd stride (L + 1, K + 1), so every shared load of a warp hits
-// distinct banks.
+// K1, the forward, runs on a persistent grid of one CTA per SM; a CTA
+// sweeps a tile of T samples through the plan together (the caller picks
+// T for the batch, so that the last round of tiles leaves few SMs idle:
+// fwd_config in ops/block_kernel.py),
+// so each k-step's fragment of a matrix is split once for T samples. The
+// next mat step's matrix streams into a second shared buffer (cp.async)
+// while the current step computes, and a diag step that follows a mat
+// step is applied to that product's sums before they are stored, which
+// saves a pass over shared memory and a barrier. The tensor cores round
+// each mma's sum toward zero; K1 adds each k-step's partial sums into its
+// accumulators in f32 (mma_step's FLUSH), which keeps that bias off the
+// loss (with running sums the 12q train step's loss sat at half its 2e-5
+// limit).
 //
 // K2, the reverse sweep, runs its three products per mat step (recover the
 // step's input, form the matrix cotangent, pull the cotangent back) on the
-// tensor cores in 3xTF32: each f32 operand splits into a TF32 high part
-// and a TF32 low part of the remainder, and hi*hi + hi*lo + lo*hi
-// accumulate in f32 (mma.sync m16n8k8; tf32_mma.cuh, shared with the
-// cluster pair), which keeps the f32 parity the port is held to (a single
-// TF32 pass would not). It sweeps the plan in
+// tensor cores as K1 does. It sweeps the plan in
 // reverse from the final state with O(1) state memory: the matrices
 // arrive conj-transposed (Mct = conj(M)^T), and one contraction with Mct
 // both recovers the step's input and pulls the cotangent back. A CTA takes
@@ -34,9 +47,9 @@
 // slab once a tile, and the phase cotangents likewise, so the slabs (one
 // per CTA, one CTA per SM: 33 MB at 12 qubits) stay in L2. The next mat
 // step's Mct streams into a second shared buffer (cp.async) while the
-// current step computes. The state rows are unpadded and XOR-swizzled
-// (sidx below), so that the fragment loads of every product, in either
-// orientation, hit distinct banks.
+// current step computes. In both kernels the state rows are unpadded and
+// XOR-swizzled (sidx below), so that the fragment loads of every product,
+// in either orientation, hit distinct banks.
 //
 // The matrix and phase cotangents are sums over the batch. A TPU grid runs
 // in order and can carry that sum across grid steps; CTAs cannot, so a
@@ -58,7 +71,9 @@
 #define QC_MAX_STEPS 128
 #define QC_THREADS 256
 #define QC_WARPS (QC_THREADS / 32)
-#define QC_TILE 2  // most samples a backward CTA sweeps together (bwd_config)
+#define QC_TILE 2      // most samples a backward CTA sweeps together (bwd_config)
+#define QC_FWD_TILE 4  // most samples a forward CTA sweeps together (K1's register tile)
+#define QC_SMEM_MAX 232448  // a CTA's opt-in shared memory on sm_90 (227 KiB)
 
 struct QcPlan {
     int n_steps;
@@ -69,150 +84,13 @@ struct QcPlan {
     // to the sweep's first mat step), or -1 where the plan has no mat
     int next_mat[QC_MAX_STEPS];
     int first_mat;  // the sweep's first mat step (the plan's last), or -1
+    // the same for the forward's sweep, which runs the plan in order: the
+    // next mat step after this one (wrapping to the plan's first), or -1
+    int fwd_next_mat[QC_MAX_STEPS];
+    int fwd_first_mat;
 };
 
-// acc(i, j) = sum_p A(i, p) * B(p, j) over a strided 4x4 tile:
-// i = ty + R*r, j = tx + C*c. A(i, p) = a[i*a_si + p*a_sp] and
-// B(p, j) = b[p*b_sp + j*b_sj], split re/im.
-__device__ __forceinline__ void cgemm_tile(
-    const float* __restrict__ ar, const float* __restrict__ ai, int a_si,
-    int a_sp, const float* __restrict__ br, const float* __restrict__ bi,
-    int b_sp, int b_sj, int P, int R, int C, int ty, int tx,
-    float accr[4][4], float acci[4][4]) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-            accr[r][c] = 0.f;
-            acci[r][c] = 0.f;
-        }
-    int a_row[4], b_col[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) a_row[r] = (ty + R * r) * a_si;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) b_col[c] = (tx + C * c) * b_sj;
-    for (int p = 0; p < P; ++p) {
-        const int ap = p * a_sp;
-        const int bp = p * b_sp;
-        float xr[4], xi[4], yr[4], yi[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-            xr[r] = ar[a_row[r] + ap];
-            xi[r] = ai[a_row[r] + ap];
-        }
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-            yr[c] = br[bp + b_col[c]];
-            yi[c] = bi[bp + b_col[c]];
-        }
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) {
-                accr[r][c] = fmaf(xr[r], yr[c], accr[r][c]);
-                accr[r][c] = fmaf(-xi[r], yi[c], accr[r][c]);
-                acci[r][c] = fmaf(xr[r], yi[c], acci[r][c]);
-                acci[r][c] = fmaf(xi[r], yr[c], acci[r][c]);
-            }
-    }
-}
-
-// Copy a dense [K][K] matrix pair from device memory into shared rows of
-// stride K + 1.
-__device__ __forceinline__ void load_mat(const float* __restrict__ g, int K,
-                                         float* mr, float* mi) {
-    const int kk = K * K;
-    for (int e = threadIdx.x; e < kk; e += QC_THREADS) {
-        const int k = e / K, m = e - k * K;
-        mr[k * (K + 1) + m] = g[e];
-        mi[k * (K + 1) + m] = g[kk + e];
-    }
-}
-
-// s <- contract(s, M) along the step's axis, through registers.
-__device__ __forceinline__ void mat_step(float* sr, float* si, const float* mr,
-                                         const float* mi, bool hi, int H,
-                                         int L) {
-    const int S = L + 1;
-    const int K = hi ? H : L;
-    const int R = H / 4, C = L / 4;
-    const int tid = threadIdx.x;
-    const bool active = tid < R * C;
-    const int ty = tid / C, tx = tid - (tid / C) * C;
-    float accr[4][4], acci[4][4];
-    if (active) {
-        if (hi)
-            cgemm_tile(mr, mi, 1, K + 1, sr, si, S, 1, K, R, C, ty, tx, accr,
-                       acci);
-        else
-            cgemm_tile(sr, si, S, 1, mr, mi, K + 1, 1, K, R, C, ty, tx, accr,
-                       acci);
-    }
-    __syncthreads();
-    if (active) {
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) {
-                const int idx = (ty + R * r) * S + tx + C * c;
-                sr[idx] = accr[r][c];
-                si[idx] = acci[r][c];
-            }
-    }
-    __syncthreads();
-}
-
-extern "C" __global__ void __launch_bounds__(QC_THREADS)
-block_chain_fwd_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
-                       const float* __restrict__ mats,
-                       const float* __restrict__ phases, float* __restrict__ yr,
-                       float* __restrict__ yi, int B, int H, int L, QcPlan plan) {
-    extern __shared__ float smem[];
-    const int S = L + 1;
-    const int KM = H > L ? H : L;
-    const int HL = H * L;
-    float* sr = smem;
-    float* si = sr + H * S;
-    float* mr = si + H * S;
-    float* mi = mr + KM * (KM + 1);
-    const int tid = threadIdx.x;
-    for (int b = blockIdx.x; b < B; b += gridDim.x) {
-        const size_t base = (size_t)b * HL;
-        for (int e = tid; e < HL; e += QC_THREADS) {
-            const int h = e / L, l = e - h * L;
-            sr[h * S + l] = xr[base + e];
-            si[h * S + l] = xi[base + e];
-        }
-        __syncthreads();
-        for (int st = 0; st < plan.n_steps; ++st) {
-            if (plan.kind[st] == 0) {
-                const bool hi = plan.axis[st] == 0;
-                load_mat(mats + plan.off[st], hi ? H : L, mr, mi);
-                __syncthreads();
-                mat_step(sr, si, mr, mi, hi, H, L);
-            } else {
-                const float* pc = phases + plan.off[st];
-                const float* ps = pc + HL;
-                for (int e = tid; e < HL; e += QC_THREADS) {
-                    const int idx = (e / L) * S + e % L;
-                    const float c = pc[e], s = ps[e];
-                    const float a = sr[idx], d = si[idx];
-                    sr[idx] = a * c - d * s;
-                    si[idx] = a * s + d * c;
-                }
-                __syncthreads();
-            }
-        }
-        for (int e = tid; e < HL; e += QC_THREADS) {
-            const int h = e / L, l = e - h * L;
-            yr[base + e] = sr[h * S + l];
-            yi[base + e] = si[h * S + l];
-        }
-        __syncthreads();
-    }
-}
-
-// -- K2: the reverse sweep on tensor cores --------------------------------
+// -- shared helpers of both kernels ----------------------------------------
 //
 // Shared arrays are [rows][W] with W a power of two >= 32, unpadded, each
 // row's columns XOR-permuted by a multiple of 4 (sidx). A warp's mma
@@ -294,7 +172,7 @@ __device__ __forceinline__ void cgemm_warp(
             uint32_t ah[2][2][4], al[2][2][4], bh[2][2][2], bl[2][2][2];
             frag_a<A_T, CONJ_A>(ar, ai, aw, m0, p1, kk, ah, al);
             frag_b<B_T>(br, bi, bw, n0, p1, kk, bh, bl);
-            mma_step(acc, ah, al, bh, bl);
+            mma_step<false>(acc, ah, al, bh, bl);
         }
     }
 }
@@ -352,53 +230,199 @@ __device__ __forceinline__ void load_mat_async(const float* __restrict__ g, int 
     }
 }
 
-// The recovery (or pullback) of every sample of the tile: s <- contract(s,
-// Mct) on the step's axis, in place. The H x L output is H*L/512 <= 8 warp
-// tiles, one per warp; each k-step's Mct fragment is split once and serves
-// every sample of the tile.
-template <bool HI>
-__device__ __forceinline__ void recover_tile(float* smem, int plane, int nt,
-                                             const float* mr, const float* mi,
-                                             int H, int L) {
+// s <- contract(s, M) on the step's axis, in place, for the nt <= TM
+// samples of a tile, sample k's re / im planes of H x L at smem + (stride
+// k + plane) H L and H L further. K1's mat steps pass M; K2's recovery and
+// pullback pass Mct. The H x L output is H*L/512 <= 8 warp tiles, one per
+// warp; each k-step's fragment of the matrix is split once and serves
+// every sample of the tile. With PHASE the product's sums are multiplied
+// by the phase planes (cos, sin)[H][L] at pc before they are stored: a
+// diag step that follows the mat step, folded in. FLUSH adds each k-step's
+// partial sums into the accumulators in f32 (mma_step): K1 takes it, K2
+// keeps its running sums.
+template <bool HI, int TM, bool PHASE, bool FLUSH>
+__device__ __forceinline__ void contract_tile(float* smem, int stride, int plane,
+                                              int nt, const float* mr,
+                                              const float* mi, int H, int L,
+                                              const float* __restrict__ pc) {
     const int HL = H * L;
     const int warp = threadIdx.x >> 5;
     const bool active = warp < HL / 512;
     const int m0 = (warp / (L / 16)) * 32, n0 = (warp % (L / 16)) * 16;
-    float acc[QC_TILE][2][2][2][4];
+    float acc[TM][2][2][2][4];
 #pragma unroll
-    for (int k = 0; k < QC_TILE; ++k) zero_acc(acc[k]);
+    for (int k = 0; k < TM; ++k) zero_acc(acc[k]);
     if (active) {
         for (int p1 = 0; p1 < (HI ? H : L); p1 += 32) {
 #pragma unroll 1
             for (int kk = 0; kk < 32; kk += 8) {
                 uint32_t ah[2][2][4], al[2][2][4], bh[2][2][2], bl[2][2][2];
-                if (HI)  // x'[m][l] = sum_k Mct[k][m] x[k][l]
+                if (HI)  // x'[m][l] = sum_k M[k][m] x[k][l]
                     frag_a<true, false>(mr, mi, H, m0, p1, kk, ah, al);
-                else  // x'[h][m] = sum_k x[h][k] Mct[k][m]
+                else  // x'[h][m] = sum_k x[h][k] M[k][m]
                     frag_b<false>(mr, mi, L, n0, p1, kk, bh, bl);
 #pragma unroll
-                for (int k = 0; k < QC_TILE; ++k) {
+                for (int k = 0; k < TM; ++k) {
                     if (k >= nt) break;
-                    const float* xr = smem + (size_t)(4 * k + plane) * HL;
+                    const float* xr = smem + (size_t)(stride * k + plane) * HL;
                     if (HI)
                         frag_b<false>(xr, xr + HL, L, n0, p1, kk, bh, bl);
                     else
                         frag_a<false, false>(xr, xr + HL, L, m0, p1, kk, ah, al);
-                    mma_step(acc[k], ah, al, bh, bl);
+                    mma_step<FLUSH>(acc[k], ah, al, bh, bl);
                 }
             }
+        }
+        if (PHASE) {  // (re + i im) (c + i s); one phase serves every sample
+            const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+                for (int ntl = 0; ntl < 2; ++ntl)
+#pragma unroll
+                    for (int h = 0; h < 2; ++h) {
+                        const int e = (m0 + mt * 16 + g + 8 * h) * L + n0 + ntl * 8 + 2 * t;
+                        const float2 c = *reinterpret_cast<const float2*>(pc + e);
+                        const float2 s = *reinterpret_cast<const float2*>(pc + HL + e);
+#pragma unroll
+                        for (int k = 0; k < TM; ++k)
+#pragma unroll
+                            for (int j = 0; j < 2; ++j) {
+                                float* re = &acc[k][mt][ntl][0][2 * h + j];
+                                float* im = &acc[k][mt][ntl][1][2 * h + j];
+                                const float cj = j ? c.y : c.x, sj = j ? s.y : s.x;
+                                const float a = *re, d = *im;
+                                *re = a * cj - d * sj;
+                                *im = a * sj + d * cj;
+                            }
+                    }
         }
     }
     __syncthreads();
     if (active)
 #pragma unroll
-        for (int k = 0; k < QC_TILE; ++k) {
+        for (int k = 0; k < TM; ++k) {
             if (k >= nt) break;
-            float* xr = smem + (size_t)(4 * k + plane) * HL;
+            float* xr = smem + (size_t)(stride * k + plane) * HL;
             store_tile(xr, xr + HL, L, m0, n0, acc[k]);
         }
     __syncthreads();
 }
+
+// -- K1: the forward on tensor cores ---------------------------------------
+
+// A diag step on its own (one that no mat step precedes): every sample of
+// the tile times the phase planes (cos, sin)[H][L] at pc.
+__device__ __forceinline__ void diag_tile(float* smem, int nt,
+                                          const float* __restrict__ pc, int H,
+                                          int L) {
+    const int HL = H * L;
+    for (int e = threadIdx.x; e < HL; e += QC_THREADS) {
+        const int h = e / L, idx = sidx(h, e - h * L, L);
+        const float c = pc[e], s = pc[HL + e];
+        for (int k = 0; k < nt; ++k) {
+            float* sr = smem + (size_t)2 * k * HL;
+            float* si = sr + HL;
+            const float a = sr[idx], d = si[idx];
+            sr[idx] = a * c - d * s;
+            si[idx] = a * s + d * c;
+        }
+    }
+    __syncthreads();
+}
+
+extern "C" __global__ void __launch_bounds__(QC_THREADS, 1)
+block_chain_fwd_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+                       const float* __restrict__ mats,
+                       const float* __restrict__ phases, float* __restrict__ yr,
+                       float* __restrict__ yi, int B, int H, int L, int T, int NB,
+                       QcPlan plan) {
+    // shared: T samples of [s_re, s_im] planes of H x L, then NB matrix
+    // buffers of [re, im] planes of KM x KM
+    extern __shared__ __align__(16) float smem[];
+    const int HL = H * L;
+    const int KM = H > L ? H : L;
+    float* mbuf = smem + (size_t)2 * T * HL;
+    const int tid = threadIdx.x;
+    int cur = 0;  // the matrix buffer of the current mat step
+    if (NB == 2 && plan.fwd_first_mat >= 0) {
+        const int f = plan.fwd_first_mat;
+        load_mat_async(mats + plan.off[f], plan.axis[f] == 0 ? H : L, mbuf,
+                       mbuf + KM * KM);
+        cp_async_commit();
+    }
+    const int tiles = (B + T - 1) / T;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int b0 = tile * T;
+        const int nt = min(T, B - b0);
+        for (int k = 0; k < nt; ++k) {
+            const size_t base = (size_t)(b0 + k) * HL;
+            float* dst = smem + (size_t)2 * k * HL;
+            for (int e = 4 * tid; e < HL; e += 4 * QC_THREADS) {
+                const int h = e / L, idx = sidx(h, e - h * L, L);
+                *reinterpret_cast<float4*>(dst + idx) =
+                    *reinterpret_cast<const float4*>(xr + base + e);
+                *reinterpret_cast<float4*>(dst + HL + idx) =
+                    *reinterpret_cast<const float4*>(xi + base + e);
+            }
+        }
+        __syncthreads();
+        for (int st = 0; st < plan.n_steps; ++st) {
+            if (plan.kind[st] == 1) {
+                diag_tile(smem, nt, phases + plan.off[st], H, L);
+                continue;
+            }
+            const bool hi = plan.axis[st] == 0;
+            float* mr = mbuf + (size_t)cur * 2 * KM * KM;
+            float* mi = mr + KM * KM;
+            if (NB == 2) {  // stream the next mat step's matrix meanwhile
+                const int nx = plan.fwd_next_mat[st];
+                float* nr = mbuf + (size_t)(cur ^ 1) * 2 * KM * KM;
+                load_mat_async(mats + plan.off[nx], plan.axis[nx] == 0 ? H : L, nr,
+                               nr + KM * KM);
+                cp_async_commit();
+                cp_async_wait<1>();
+            } else {
+                load_mat_async(mats + plan.off[st], hi ? H : L, mr, mi);
+                cp_async_commit();
+                cp_async_wait<0>();
+            }
+            __syncthreads();
+            // a diag step right after this one is applied before the store
+            const bool fold = st + 1 < plan.n_steps && plan.kind[st + 1] == 1;
+            const float* pc = fold ? phases + plan.off[st + 1] : nullptr;
+            if (hi && fold)
+                contract_tile<true, QC_FWD_TILE, true, true>(smem, 2, 0, nt, mr, mi,
+                                                             H, L, pc);
+            else if (hi)
+                contract_tile<true, QC_FWD_TILE, false, true>(smem, 2, 0, nt, mr, mi,
+                                                              H, L, pc);
+            else if (fold)
+                contract_tile<false, QC_FWD_TILE, true, true>(smem, 2, 0, nt, mr, mi,
+                                                              H, L, pc);
+            else
+                contract_tile<false, QC_FWD_TILE, false, true>(smem, 2, 0, nt, mr, mi,
+                                                               H, L, pc);
+            if (fold) ++st;
+            if (NB == 2) cur ^= 1;
+        }
+        for (int k = 0; k < nt; ++k) {
+            const size_t base = (size_t)(b0 + k) * HL;
+            const float* src = smem + (size_t)2 * k * HL;
+            for (int e = 4 * tid; e < HL; e += 4 * QC_THREADS) {
+                const int h = e / L, idx = sidx(h, e - h * L, L);
+                *reinterpret_cast<float4*>(yr + base + e) =
+                    *reinterpret_cast<const float4*>(src + idx);
+                *reinterpret_cast<float4*>(yi + base + e) =
+                    *reinterpret_cast<const float4*>(src + HL + idx);
+            }
+        }
+        __syncthreads();
+    }
+    cp_async_wait<0>();
+}
+
+// -- K2: the reverse sweep on tensor cores ---------------------------------
 
 extern "C" __global__ void __launch_bounds__(QC_THREADS, 1)
 block_chain_bwd_kernel(const float* __restrict__ yr, const float* __restrict__ yi,
@@ -467,9 +491,11 @@ block_chain_bwd_kernel(const float* __restrict__ yr, const float* __restrict__ y
                 __syncthreads();
                 // input recovery: s_in = contract(s_out, Mct)
                 if (hi)
-                    recover_tile<true>(smem, 0, nt, mr, mi, H, L);
+                    contract_tile<true, QC_TILE, false, false>(smem, 4, 0, nt, mr, mi,
+                                                               H, L, nullptr);
                 else
-                    recover_tile<false>(smem, 0, nt, mr, mi, H, L);
+                    contract_tile<false, QC_TILE, false, false>(smem, 4, 0, nt, mr, mi,
+                                                                H, L, nullptr);
                 // dM = sum over the tile and the other axis of conj(s_in) g:
                 // (K / 32) x (K / 16) warp tiles, each summed over the tile
                 // in registers, then added to the slab
@@ -496,9 +522,11 @@ block_chain_bwd_kernel(const float* __restrict__ yr, const float* __restrict__ y
                 }
                 // cotangent pullback with the same conj-transposed matrix
                 if (hi)
-                    recover_tile<true>(smem, 2, nt, mr, mi, H, L);
+                    contract_tile<true, QC_TILE, false, false>(smem, 4, 2, nt, mr, mi,
+                                                               H, L, nullptr);
                 else
-                    recover_tile<false>(smem, 2, nt, mr, mi, H, L);
+                    contract_tile<false, QC_TILE, false, false>(smem, 4, 2, nt, mr, mi,
+                                                                H, L, nullptr);
                 if (NB == 2) cur ^= 1;
             } else {
                 const float* pc = phases + plan.off[st];
@@ -566,13 +594,17 @@ static int fill_plan(QcPlan* plan, const int* steps, int n_steps) {
             if (plan->kind[j] == 0) nx = j;
         plan->next_mat[i] = nx >= 0 ? nx : plan->first_mat;
     }
+    // the forward sweeps from the first step up, then starts over
+    plan->fwd_first_mat = -1;
+    for (int i = 0; i < n_steps && plan->fwd_first_mat < 0; ++i)
+        if (plan->kind[i] == 0) plan->fwd_first_mat = i;
+    for (int i = 0; i < n_steps; ++i) {
+        int nx = -1;
+        for (int j = i + 1; j < n_steps && nx < 0; ++j)
+            if (plan->kind[j] == 0) nx = j;
+        plan->fwd_next_mat[i] = nx >= 0 ? nx : plan->fwd_first_mat;
+    }
     return 0;
-}
-
-// The forward's two state planes of [H][L + 1] and one [K][K + 1] matrix.
-static size_t fwd_smem_bytes(int H, int L) {
-    const int KM = H > L ? H : L;
-    return sizeof(float) * (2 * (size_t)H * (L + 1) + 2 * (size_t)KM * (KM + 1));
 }
 
 // The backward's tile of samples T and Mct buffers NB: two samples and two
@@ -611,18 +643,34 @@ extern "C" const char* qc_error_string(int err) {
     return cudaGetErrorString((cudaError_t)err);
 }
 
+// K1 with a tile of T samples, NB matrix buffers and a grid of G CTAs, as
+// the caller picks them (fwd_config in ops/block_kernel.py); refused unless
+// T is within K1's register tile and the tile fits a CTA's shared memory.
 extern "C" int qc_block_chain_fwd(const float* xr, const float* xi,
                                   const float* mats, const float* phases,
                                   float* yr, float* yi, int B, int H, int L,
-                                  const int* steps, int n_steps, void* stream) {
+                                  const int* steps, int n_steps, int T, int NB,
+                                  int G, void* stream) {
+    // as the backward's: tensor-core tiles, 16-byte state and matrix
+    // copies, 8-byte phase loads
+    if (!pow2_at_least_32(H) || !pow2_at_least_32(L) || H * L > 4096 || B < 1 ||
+        G < 1 || T < 1 || T > QC_FWD_TILE || (NB != 1 && NB != 2))
+        return (int)cudaErrorInvalidValue;
+    const int KM = H > L ? H : L;
+    const size_t smem =
+        sizeof(float) * (2 * (size_t)T * H * L + 2 * (size_t)NB * KM * KM);
+    if (smem > QC_SMEM_MAX) return (int)cudaErrorInvalidValue;
+    const void* ptrs[5] = {xr, xi, mats, yr, yi};
+    for (int i = 0; i < 5; ++i)
+        if ((uintptr_t)ptrs[i] % 16) return (int)cudaErrorMisalignedAddress;
+    if ((uintptr_t)phases % 8) return (int)cudaErrorMisalignedAddress;
     QcPlan plan;
     int err = fill_plan(&plan, steps, n_steps);
     if (err) return err;
-    const size_t smem = fwd_smem_bytes(H, L);
     err = opt_in_smem((const void*)block_chain_fwd_kernel, smem, fwd_smem_done);
     if (err) return err;
-    block_chain_fwd_kernel<<<B, QC_THREADS, smem, (cudaStream_t)stream>>>(
-        xr, xi, mats, phases, yr, yi, B, H, L, plan);
+    block_chain_fwd_kernel<<<G, QC_THREADS, smem, (cudaStream_t)stream>>>(
+        xr, xi, mats, phases, yr, yi, B, H, L, T, NB, plan);
     return (int)cudaGetLastError();
 }
 

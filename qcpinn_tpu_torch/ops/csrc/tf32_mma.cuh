@@ -45,6 +45,13 @@ __device__ __forceinline__ void mma3(float c[4], const uint32_t ah[4],
 // acc[mt][nt][re/im] += A * B of one k-step, complex, in 3xTF32; the
 // fragments are split [re/im][mt or nt][q]. (The cluster pair issues the
 // same products in another order, block_chain_cluster.cu's cmma_half.)
+// The tensor cores round each mma's sum toward zero, a bias that grows
+// with every mma into a running sum. With FLUSH, the k-step's 6 mma of
+// each output go into a fresh sum t that joins acc by an f32 add, rounded
+// to nearest, so those roundings act on one k-step's partial sum only (4
+// more registers and an add a k-step); the mma and their order are the
+// same either way.
+template <bool FLUSH>
 __device__ __forceinline__ void mma_step(float acc[2][2][2][4],
                                          const uint32_t ah[2][2][4],
                                          const uint32_t al[2][2][4],
@@ -57,10 +64,23 @@ __device__ __forceinline__ void mma_step(float acc[2][2][2][4],
         const uint32_t nl[2] = {bl[1][nt][0] ^ 0x80000000u, bl[1][nt][1] ^ 0x80000000u};
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt) {
-            mma3(acc[mt][nt][0], ah[0][mt], al[0][mt], bh[0][nt], bl[0][nt]);
-            mma3(acc[mt][nt][0], ah[1][mt], al[1][mt], nh, nl);
-            mma3(acc[mt][nt][1], ah[0][mt], al[0][mt], bh[1][nt], bl[1][nt]);
-            mma3(acc[mt][nt][1], ah[1][mt], al[1][mt], bh[0][nt], bl[0][nt]);
+            if (FLUSH) {
+                float t[4] = {0.f, 0.f, 0.f, 0.f};
+                mma3(t, ah[0][mt], al[0][mt], bh[0][nt], bl[0][nt]);
+                mma3(t, ah[1][mt], al[1][mt], nh, nl);
+#pragma unroll
+                for (int e = 0; e < 4; ++e) acc[mt][nt][0][e] += t[e];
+                float u[4] = {0.f, 0.f, 0.f, 0.f};
+                mma3(u, ah[0][mt], al[0][mt], bh[1][nt], bl[1][nt]);
+                mma3(u, ah[1][mt], al[1][mt], bh[0][nt], bl[0][nt]);
+#pragma unroll
+                for (int e = 0; e < 4; ++e) acc[mt][nt][1][e] += u[e];
+            } else {
+                mma3(acc[mt][nt][0], ah[0][mt], al[0][mt], bh[0][nt], bl[0][nt]);
+                mma3(acc[mt][nt][0], ah[1][mt], al[1][mt], nh, nl);
+                mma3(acc[mt][nt][1], ah[0][mt], al[0][mt], bh[1][nt], bl[1][nt]);
+                mma3(acc[mt][nt][1], ah[1][mt], al[1][mt], bh[0][nt], bl[0][nt]);
+            }
         }
     }
 }

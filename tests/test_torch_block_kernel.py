@@ -202,6 +202,49 @@ def test_smem_bytes_at_12_qubits():
     assert bk.bwd_config(_one_step_plan(12, 7)) == (1, 1, 4 * (4 * 4096 + 2 * 128 * 128))
 
 
+@pytest.mark.parametrize("n,hb,batch,tile,bufs", [
+    # 12q balanced (the main path): 4 samples at the stream batch, 3 at the
+    # value rows' (228 tiles: 2 rounds on 132 SMs, where 4 would leave 39
+    # CTAs a second tile of 4), 1 where the batch is under one round
+    (12, 6, 6144, 4, 2), (12, 6, 682, 3, 2), (12, 6, 37, 1, 2), (12, 6, 1, 1, 2),
+    # a 128-wide block: one [128, 128] buffer, room for 3 samples beside it
+    (12, 7, 6144, 3, 1), (12, 7, 682, 3, 1), (12, 5, 682, 3, 1),
+    (11, 6, 6144, 4, 2), (11, 5, 682, 3, 2), (10, 5, 6144, 4, 2), (10, 5, 682, 3, 2),
+])
+def test_fwd_config(n, hb, batch, tile, bufs):
+    """The forward's tile of samples, matrix buffers and shared bytes a CTA
+    (fwd_config, the rule K1 is launched with): T samples' [H, L] re/im
+    planes and the [K, K] re/im buffers, within a CTA's opt-in shared
+    memory on sm_90 (227 KiB)."""
+    plan = _one_step_plan(n, hb)
+    km = 1 << max(hb, n - hb)
+    smem = 4 * (tile * 2 * (1 << n) + bufs * 2 * km * km)
+    assert bk.fwd_config(plan, batch, 132) == (tile, bufs, smem)
+    assert smem <= 227 * 1024
+
+
+def test_fwd_config_mirrors_the_cuda_source():
+    """block_kernel's limits are those the CUDA entry checks a launch
+    against (K1's register tile, a CTA's shared memory), and fwd_config
+    picks T by its cost, rounds * (T + 1) with ties to the larger T."""
+    import math
+    import os
+    import re
+
+    src = open(os.path.join(os.path.dirname(bk.__file__), "csrc", "block_chain.cu")).read()
+    consts = {k: int(v) for k, v in re.findall(r"#define (QC_\w+) (\d+)", src)}
+    assert (consts["QC_FWD_TILE"], consts["QC_SMEM_MAX"]) == (bk.FWD_TILE, bk.SMEM_MAX)
+    plan = _one_step_plan(12, 6)
+    for batch in (1, 131, 132, 133, 264, 265, 682, 6144):
+        tile = bk.fwd_config(plan, batch, 132)[0]
+
+        def cost(t):  # the most tiles a CTA of min(batch, 132) takes, times T + 1
+            return math.ceil(math.ceil(batch / t) / min(batch, 132)) * (t + 1)
+
+        assert all(cost(tile) < cost(t) or (cost(tile) == cost(t) and tile > t)
+                   for t in range(1, bk.FWD_TILE + 1) if t != tile)
+
+
 @pytest.mark.parametrize("n", [4, 6])
 def test_evolve_value_and_grad_matches_jax_block(n):
     """value_and_grad through BlockKernelCircuit.evolve wrt circuit params
