@@ -65,6 +65,12 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                within 2e-4 * max(|ref|, 1e-3); then eager, graph, graph, eager
                in one process: ms a step, launches a step, device time and
                idle share of the unprofiled step.
+6c. stage1_jet the 16q stage-1 step on its forward jet (physics/jet.py),
+               graphed, against the same step on the jet's plain version
+               (the nested jvps of diffusion_operator_fwd), eager, from the
+               same seed: 13 steps, limits as in 6b; then both graphed in
+               turns (nested, jet, jet, nested): ms, launches and device
+               time a step.
 7. loop_shapes the gate-loop kernels (K5/K6) against their plain versions at
                every cluster size (one CTA up to 13 qubits, 2, 4, 8 CTAs at
                14, 15, 16): cross_mesh n = 10, 12, 13, 14, 15, 16, cascade
@@ -96,31 +102,37 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                loop, block: the step time spreads across processes), and a
                torch.profiler window of each.
 11. unrolled_shapes the unrolled kernels (K3/K4 and the slab reduction
-               K4b) against their plain versions, with the encoding (from
-               |0...0>) and evolve-only: cross_mesh n = 7, 8, 9, 10, 12,
-               cascade n = 8 seed 11 (controlled gates, Haar u2q), layered
-               n = 8 with 3 layers, an amplitude-encoded evolve at n = 8,
-               B = 37 and B = 1: forward <= 3e-5 absolute on unit-norm states
-               (tests/test_pallas_sv.py), backward <= 2e-4 * max|ref| per
-               output, bit-equal across two runs.
-12. unrolled_kernels K3, K4 and K4b at the 8q main path's shapes (the
-               evolve of B = 6144 stream rows, the apply of B = 682 value
-               rows), same limits, with times beside the plain versions and
-               the plain block engine's einsum chain.
+               K4b; K4 on its warp route at n <= 9, its CTA route above)
+               against their plain versions, with the encoding (from
+               |0...0>) and evolve-only: cross_mesh n = 1, 2, 4, 7, 8, 9,
+               10, 12, cascade n = 3 (2 layers), 8 and 9 (controlled gates,
+               Haar u2q), alternate n = 5 and 6 (u2q on lane bits, 4-5
+               phase rows), layered n = 8 with 3 layers, an
+               amplitude-encoded evolve at n = 8, B = 37 and B = 1: forward
+               <= 3e-5 absolute on unit-norm states (tests/test_pallas_sv.py),
+               backward <= 2e-4 * max|ref| per output, bit-equal across two
+               runs.
+12. unrolled_kernels K3, K4 (warp route) and K4b at the 8q main path's
+               shapes (the evolve of B = 6144 stream rows, the apply of B =
+               682 value rows), with K4's CTA route on the same inputs
+               beside it, and the CTA route at the 10q north_star_plain
+               shapes (B = 1536 and 425); same limits, with times beside the
+               plain versions and the plain block engine's einsum chain,
+               and the warp route's warps, shared memory and CTAs an SM.
 13. step_parity_8q one 8q bench step through ``unrolled`` against the plain
                block engine; limits as in 5.
 14. train_8q   the 8q main path: the bench train step at 8 qubits (``auto``
                picks FusedCircuit), a captured CUDA graph, driven as in 6
                with the launch counters set to 0 just before: every loss finite,
-               K3, K4 and K4b launched exactly twice in each step the
-               counters see, no plain version called; then a torch.profiler
-               window.
+               K3, K4's warp route and K4b launched exactly twice in each
+               step the counters see, K4's CTA route and no plain version
+               called; then a torch.profiler window.
 15. north_star_plain ``north_star.run`` with --solver plain (DVSolver, one
                stage) at 10 qubits, B = 256, hidden 64, --backend unrolled,
                50 steps, then the 20^3 evaluation by streams: every loss
                finite, K3 launched twice per step the counters see and twice
-               per evaluation chunk, K4 and K4b twice per step they see, no
-               plain version called.
+               per evaluation chunk, K4 (its CTA route) and K4b twice per
+               step they see, K4's warp route and no plain version called.
 
 16. cluster_kernels the cluster pair (K1/K2 at 13-16 qubits) and K2b at 16
                qubits with B = 1536 stream rows and B = 425 value rows, and
@@ -145,10 +157,11 @@ Every reduction row (phases 4, 8, 12, 16) has ``graph_ms``, torch.sum's
 ``library_graph_ms``, its bound and the launch floor. Then the run's
 seconds, the kernel summary line, the nvidia-smi line, and the result line.
 
-Four measurements beside the smoke test:
+Five measurements beside the smoke test:
 
     python3 chip_smoke.py --stage2-rate TREE   # the 16q stage-2 step of TREE's package
     python3 chip_smoke.py --loop-step-costs    # K5/K6 time per step kind at 16q
+    python3 chip_smoke.py --unrolled-step-costs  # K4's routes per step kind at 8q
     python3 chip_smoke.py --cluster-kernels    # build, kernel_shapes, cluster_kernels
     python3 chip_smoke.py --rates TREE         # TREE's rows of phase 4 and step_parity
 """
@@ -485,15 +498,15 @@ def check_loop(lk, lp, banks, states, tag):
 
 class NorthStarStepper:
     """One stage of ``north_star.run`` on a fresh model from ``args``' seed,
-    set up by the run's own ``make_stage``: stage 1 (zeroed circuit,
-    forward-mode residual) or stage 2 (streams residual through
-    ``backend``). ``steps(n)`` takes n steps through the stage's
-    ``run_steps``, as the run does (on the card, the captured graph), or
-    with ``eager`` through ``step_fn`` (the plain version); both return the
-    loss of each step."""
+    set up by the run's own ``make_stage``: stage 1 (zeroed circuit, the
+    forward jet's residual, or with ``plain_residual`` its plain version,
+    the nested jvps of ``diffusion_operator_fwd``) or stage 2 (streams
+    residual through ``backend``). ``steps(n)`` takes n steps through the stage's ``run_steps``, as the run
+    does (on the card, the captured graph), or with ``eager`` through
+    ``step_fn`` (the plain version); both return the loss of each step."""
 
     def __init__(self, args, backend, dev, stage=2, eager=False, state_dict=None,
-                 terms=None, optimizer=None):
+                 terms=None, optimizer=None, plain_residual=False):
         from qcpinn_tpu_torch import north_star as ns
 
         cfg, model, use_streams, _ = ns.build_model(args, dev)
@@ -501,8 +514,12 @@ class NorthStarStepper:
             model.load_state_dict(state_dict)
         self.model = model
         self.eager = eager
+        # --stage2-rate may load a tree whose make_stage takes no residual_fn
+        kw = {"residual_fn": lambda X: ns.diffusion_operator_fwd(model, X)} \
+            if plain_residual else {}
         self.stage = ns.make_stage(model, cfg, args, terms or ns.make_terms(args),
-                                   f"stage{stage}", backend, use_streams, optimizer)
+                                   f"stage{stage}", backend, use_streams, optimizer,
+                                   **kw)
 
     @property
     def graph(self):
@@ -770,11 +787,25 @@ SV_SHAPES = (  # (n, ansatz, layers, seed, encoding, B)
     (12, "cross_mesh", 1, 42, "angle", 37), (8, "cascade", 1, 11, "angle", 37),
     (8, "layered", 3, 42, "angle", 37), (8, "cross_mesh", 1, 42, "amplitude", 37),
     (8, "cross_mesh", 1, 42, "angle", 1), (12, "cross_mesh", 1, 42, "angle", 1),
+    # K4's warp route below a warp's 32 lanes (idle lanes) and at 5-6 qubits
+    # (u2q on lane bits, then on one lane and one register bit; 4-5 phase
+    # rows, past the ones the lanes keep in registers), and 9q controlled
+    (1, "cross_mesh", 1, 42, "angle", 37), (2, "cross_mesh", 1, 42, "angle", 37),
+    (3, "cascade", 2, 42, "angle", 37), (4, "cross_mesh", 1, 42, "angle", 37),
+    (4, "cross_mesh", 1, 42, "angle", 1), (5, "alternate", 1, 42, "angle", 37),
+    (6, "alternate", 1, 42, "angle", 37), (9, "cascade", 1, 11, "angle", 37),
 )
 # the 8q main path: the evolve of 6 x 1024 stream rows, the apply (with the
 # encoding) of 2 x 341 value rows
 SV_BATCHES = ((6 * 1024, "evolve"), (2 * (1024 // 3), "apply"))
-SV_NAMES = ("unrolled_fwd", "unrolled_bwd", "unrolled_reduce")
+SV_NAMES = ("unrolled_fwd", "unrolled_bwd_warp", "unrolled_reduce")
+# K4's CTA route (10 <= n <= 12) on its main path, north_star_plain at 10
+# qubits: the evolve of 6 x 256 stream rows, the apply of 5 x 85 value rows
+SV_CTA_QUBITS = 10
+SV_CTA_BATCHES = ((6 * 256, "evolve"), (5 * (256 // 3), "apply"))
+# the plain version a kernel's launch counter is held against, where it is
+# not the kernel's name with _ref (both K4 routes share one)
+PLAIN_NAME = {"unrolled_bwd_warp": "unrolled_bwd_ref"}
 # the plain-solver twin at 10 qubits, bounded by steps: a 25-step warm-up
 # chunk and one timed chunk of 25
 NORTH_STAR_PLAIN_ARGS = ["--solver", "plain", "--qubits", "10", "--backend",
@@ -849,9 +880,10 @@ def check_sv(sk, mp, banks, states, tag):
     return {"fwd_abs": e_fwd, "bwd_abs": e_abs, "bwd_rel": e_rel}, y, y_ref
 
 
-def unrolled_phases(dev, gen, card_peaks, smi, floor):
+def unrolled_phases(dev, gen, card_peaks, smi, registers, floor):
     """Phases 11-15; returns the K3/K4/reduction rows of the summary line.
-    ``floor``: the launch floor (ms)."""
+    ``registers``: ptxas's count per kernel of unrolled_sv.cu; ``floor``:
+    the launch floor (ms)."""
     import torch
 
     from qcpinn_tpu_torch import bench, north_star as ns
@@ -875,68 +907,89 @@ def unrolled_phases(dev, gen, card_peaks, smi, floor):
           "results": shape_errs})
     torch.cuda.empty_cache()
 
-    # -- 12. unrolled_kernels at the 8q main path's shapes ---------------------
-    circ = DVCircuit(SV_QUBITS, 1, "cross_mesh", seed=42)
-    blk = BlockFusedCircuit(circ)
-    d = 1 << circ.n
-    hl = (1 << blk.hb, 1 << blk.lb)
-    per_kernel = {k: {} for k in SV_NAMES}
-    for b, mode in SV_BATCHES:
-        mp, params, x, banks, states = sv_inputs(sk, circ, b, mode, gen, dev)
-        errs, y, y_ref = check_sv(sk, mp, banks, states, f"{SV_QUBITS}q_B{b}")
-        xr, xi, gr, gi = states
-        bank_bytes = 4 * sum(t.numel() for t in banks)
-        f_ops, b_ops = step_work(lk, sk.steps(mp), mp.n, b)
-        with torch.no_grad():
-            ops = block_chain_ops(blk, params)
-            if mode == "apply":  # the library prepares the encoded state too
+    # -- 12. unrolled_kernels at the 8q main path's shapes, and K4's CTA ------
+    # route at the 10q main path's (north_star_plain)
+    per_kernel = {k: {} for k in (*SV_NAMES, "unrolled_bwd")}
+    for n_q, batches in ((SV_QUBITS, SV_BATCHES), (SV_CTA_QUBITS, SV_CTA_BATCHES)):
+        circ = DVCircuit(n_q, 1, "cross_mesh", seed=42)
+        blk = BlockFusedCircuit(circ)
+        d = 1 << circ.n
+        hl = (1 << blk.hb, 1 << blk.lb)
+        warp_route = n_q <= sk.WARP_MAX_QUBITS
+        for b, mode in batches:
+            mp, params, x, banks, states = sv_inputs(sk, circ, b, mode, gen, dev)
+            errs, y, y_ref = check_sv(sk, mp, banks, states, f"{n_q}q_B{b}")
+            xr, xi, gr, gi = states
+            bank_bytes = 4 * sum(t.numel() for t in banks)
+            f_ops, b_ops = step_work(lk, sk.steps(mp), mp.n, b)
+            with torch.no_grad():
+                ops = block_chain_ops(blk, params)
+                if mode == "apply":  # the library prepares the encoded state too
 
-                def lib_fwd():
-                    return run_chain(ops, tsv.encode_angle_product(x, circ.n).reshape(b, *hl))
-            else:
-                xc = torch.complex(xr, xi).reshape(b, *hl)
+                    def lib_fwd():
+                        return run_chain(ops, tsv.encode_angle_product(x, circ.n).reshape(b, *hl))
+                else:
+                    xc = torch.complex(xr, xi).reshape(b, *hl)
 
-                def lib_fwd():
-                    return run_chain(ops, xc)
+                    def lib_fwd():
+                        return run_chain(ops, xc)
 
-            fb, fby = bound(f_ops, 4 * 4 * b * d + bank_bytes, card_peaks)
-            per_kernel["unrolled_fwd"][b] = {
-                "mode": mode, "max_abs_err": errs["fwd_abs"], "tol": SV_FWD_TOL,
-                **timed(lambda: sk.unrolled_fwd(xr, xi, *banks, mp)),
-                "plain_ms": time_ms(lambda: sk.unrolled_fwd_ref(xr, xi, *banks, mp),
-                                    reps=5),
-                **timed(lib_fwd, reps=10, prefix="library_"),
-                "library": "the block engine's complex einsum chain, matrices "
-                           "and phases built once (cuBLAS, TF32 off)"
-                           + ("; with the product-state encoding" if mode == "apply"
-                              else ""),
-                "bound_ms": fb, "bound_by": fby,
+                if warp_route:
+                    fb, fby = bound(f_ops, 4 * 4 * b * d + bank_bytes, card_peaks)
+                    per_kernel["unrolled_fwd"][b] = {
+                        "mode": mode, "max_abs_err": errs["fwd_abs"], "tol": SV_FWD_TOL,
+                        **timed(lambda: sk.unrolled_fwd(xr, xi, *banks, mp)),
+                        "plain_ms": time_ms(
+                            lambda: sk.unrolled_fwd_ref(xr, xi, *banks, mp), reps=5),
+                        **timed(lib_fwd, reps=10, prefix="library_"),
+                        "library": "the block engine's complex einsum chain, matrices "
+                                   "and phases built once (cuBLAS, TF32 off)"
+                                   + ("; with the product-state encoding"
+                                      if mode == "apply" else ""),
+                        "bound_ms": fb, "bound_by": fby,
+                    }
+            route = (sk.unrolled_bwd_warp_partials if warp_route
+                     else sk.unrolled_bwd_cta_partials)
+            gxr, gxi, gmre, gmim, partials = route(*y, gr, gi, *banks, mp)
+            out_bytes = 4 * (gmre.numel() + gmim.numel() + banks[2].numel()
+                             + banks[3].numel())
+            bb, bby = bound(b_ops, 4 * 6 * b * d + bank_bytes + out_bytes, card_peaks)
+            # the library's backward alone, on the prepared state: its graph
+            # is built once, outside the timed calls, as the kernel's forward
+            # is outside K4's time
+            gc = torch.complex(gr, gi).reshape(b, *hl)
+            kern = timed(lambda: route(*y, gr, gi, *banks, mp))
+            row = {
+                "n_qubits": n_q, "mode": mode, "max_abs_err": errs["bwd_abs"],
+                "max_rel_err": errs["bwd_rel"], "tol": f"{BWD_RTOL}*max|ref|", **kern,
+                "plain_ms": time_ms(
+                    lambda: sk.unrolled_bwd_ref(*y_ref, gr, gi, *banks, mp), reps=5),
+                **autograd_timed(chain_forward(ops, torch.complex(xr, xi).reshape(b, *hl)),
+                                 gc, "graph_ms" in kern, reps=10),
+                "library": "autograd backward alone of that einsum chain (no encoding)",
+                "bound_ms": bb, "bound_by": bby, "grid": partials.shape[0],
             }
-        gxr, gxi, gmre, gmim, partials = sk.unrolled_bwd_partials(*y, gr, gi, *banks, mp)
-        out_bytes = 4 * (gmre.numel() + gmim.numel() + banks[2].numel() + banks[3].numel())
-        bb, bby = bound(b_ops, 4 * 6 * b * d + bank_bytes + out_bytes, card_peaks)
-        # the library's backward alone, on the prepared state: its graph is
-        # built once, outside the timed calls, as the kernel's forward is
-        # outside K4's time
-        gc = torch.complex(gr, gi).reshape(b, *hl)
-        kern = timed(lambda: sk.unrolled_bwd_partials(*y, gr, gi, *banks, mp))
-        per_kernel["unrolled_bwd"][b] = {
-            "mode": mode, "max_abs_err": errs["bwd_abs"], "max_rel_err": errs["bwd_rel"],
-            "tol": f"{BWD_RTOL}*max|ref|", **kern,
-            "plain_ms": time_ms(
-                lambda: sk.unrolled_bwd_ref(*y_ref, gr, gi, *banks, mp), reps=5),
-            **autograd_timed(chain_forward(ops, torch.complex(xr, xi).reshape(b, *hl)),
-                             gc, "graph_ms" in kern, reps=10),
-            "library": "autograd backward alone of that einsum chain (no encoding)",
-            "bound_ms": bb, "bound_by": bby, "grid": partials.shape[0],
-        }
-        del ops
-        per_kernel["unrolled_reduce"][b] = reduce_row(
-            sk.unrolled_reduce, sk.unrolled_reduce_ref, partials, card_peaks, floor)
-        del y, y_ref, gxr, gxi, gmre, gmim, partials, gc, states
-        torch.cuda.empty_cache()
-    emit({"phase": "unrolled_kernels", "n_qubits": SV_QUBITS, "card": smi,
-          "results": per_kernel})
+            if warp_route:
+                warps, smem, _, blocks = sk.warp_config(
+                    dev, mp.n, banks[0].shape[1], banks[2].shape[0], banks[4].shape[0], b)
+                row.update({
+                    "warps_per_cta": warps, "smem_per_cta": smem, "ctas_per_sm": blocks,
+                    "registers": registers.get(f"unrolled_bwd_warp_kernel_rb{mp.n - 5}"),
+                    # the CTA route on the same inputs, the kernel this route
+                    # replaced at n <= 9
+                    **timed(lambda: sk.unrolled_bwd_cta_partials(*y, gr, gi, *banks, mp),
+                            prefix="cta_route_", graph="graph_ms" in kern),
+                })
+                per_kernel["unrolled_bwd_warp"][b] = row
+                per_kernel["unrolled_reduce"][b] = reduce_row(
+                    sk.unrolled_reduce, sk.unrolled_reduce_ref, partials, card_peaks, floor)
+            else:
+                row["registers"] = registers.get("unrolled_bwd_kernel")
+                per_kernel["unrolled_bwd"][b] = row
+            del ops, y, y_ref, gxr, gxi, gmre, gmim, partials, gc, states
+            torch.cuda.empty_cache()
+    emit({"phase": "unrolled_kernels", "n_qubits": SV_QUBITS, "cta_route_qubits": SV_CTA_QUBITS,
+          "card": smi, "results": per_kernel})
 
     # -- 13. step_parity_8q: unrolled vs the plain block engine ----------------
     emit({"phase": "step_parity_8q", **step_parity(bench, SV_QUBITS, "unrolled")})
@@ -946,6 +999,8 @@ def unrolled_phases(dev, gen, card_peaks, smi, floor):
     if not isinstance(trainer.model._fused, sk.FusedCircuit):
         raise SystemExit(f"auto picked {type(trainer.model._fused).__name__} at 8q")
     launches, row = run_train(trainer, sk, SV_NAMES)
+    if launches["unrolled_bwd"] != 0:
+        raise SystemExit(f"train_8q: K4's CTA route ran {launches['unrolled_bwd']} times")
     emit({"phase": "train_8q", **row, "card": smi,
           "profile": bench.profile(trainer, row["ms_per_step"], steps=3, top=8)})
     del trainer
@@ -969,33 +1024,36 @@ def unrolled_phases(dev, gen, card_peaks, smi, floor):
     eval_chunks = -(-20**3 // min(512, 8 * args.batch))
     seen = min(result["steps"], WARMUP_STEPS + 1)  # warm-ups and the capture
     want = {"unrolled_fwd": 2 * seen + 2 * eval_chunks, "unrolled_bwd": 2 * seen,
-            "unrolled_reduce": 2 * seen}
+            "unrolled_reduce": 2 * seen, "unrolled_bwd_warp": 0}
     for k, v in want.items():
         if ns_launches[k] != v:
             raise SystemExit(f"north_star_plain: {k} launched {ns_launches[k]}, want {v}")
-        if ns_launches[f"{k}_ref"] != 0:
-            raise SystemExit(f"north_star_plain: plain version {k}_ref ran")
+        if ns_launches[PLAIN_NAME.get(k, f"{k}_ref")] != 0:
+            raise SystemExit(f"north_star_plain: the plain version of {k} ran")
     emit({"phase": "north_star_plain", "result": result, "wall_s": wall,
           "launches": ns_launches, "card": smi})
 
     sources = {
         "unrolled_fwd": "qcpinn_tpu/ops/pallas_sv.py:284",
+        "unrolled_bwd_warp": "qcpinn_tpu/ops/pallas_sv.py:317",
         "unrolled_bwd": "qcpinn_tpu/ops/pallas_sv.py:317",
         "unrolled_reduce": "qcpinn_tpu/ops/pallas_sv.py:332",
     }
-    main_b = SV_BATCHES[0][0]
     rows = []
     for k, by_b in per_kernel.items():
+        # K4's CTA route: its launches and shapes on north_star_plain (10q)
+        cta = k == "unrolled_bwd"
+        main_b = (SV_CTA_BATCHES if cta else SV_BATCHES)[0][0]
         r = by_b[main_b]
         rows.append({
             "name": k, "route": "cuda",
             "source": "qcpinn_tpu_torch/ops/csrc/unrolled_sv.cu",
-            "replaces": sources[k], "launches": launches[k],
+            "replaces": sources[k], "launches": (ns_launches if cta else launches)[k],
             "max_abs_err": max(v["max_abs_err"] for v in by_b.values()),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             **{key: r[key] for key in GRAPH_KEYS if key in r},
-            "batch": main_b,
+            "batch": main_b, "n_qubits": SV_CTA_QUBITS if cta else SV_QUBITS,
             "by_batch": {str(bb): v for bb, v in by_b.items()},
         })
     return rows
@@ -1063,8 +1121,9 @@ def run_train(trainer, lib, names):
     for k in names:
         if launches[k] != 2 * seen:
             raise SystemExit(f"{k}: {launches[k]} launches in {seen} steps the counters see")
-        if launches[f"{k}_ref"] != 0:
-            raise SystemExit(f"plain version {k}_ref ran {launches[k + '_ref']} times")
+        ref = PLAIN_NAME.get(k, f"{k}_ref")
+        if launches[ref] != 0:
+            raise SystemExit(f"plain version {ref} ran {launches[ref]} times")
     return launches, {
         "steps": len(losses), "timed_steps": STEPS, "batch": trainer.batch,
         "counted_steps": seen, "replays": graph.replays,
@@ -1162,6 +1221,44 @@ def graph_phase(dev, smi):
     emit({"phase": "graph", "parity_steps": GRAPH_PARITY_STEPS,
           "tol": {"loss_rtol": 2e-5, "params": "2e-4*max(|ref|,1e-3)"},
           "results": out, "card": smi})
+
+
+def stage1_jet_phase(dev, smi):
+    """Phase ``stage1_jet``: the 16q north-star stage-1 step on the forward
+    jet (``physics/jet.py``), graphed through the stage's ``run_steps``,
+    against the same step on its plain version, the nested jvps of
+    ``diffusion_operator_fwd``, eager through ``step_fn``, from the same seed:
+    GRAPH_PARITY_STEPS steps, every loss within rtol 2e-5 and every
+    parameter after the last step within 2e-4 * max(|ref|, 1e-3). Then both
+    graphed, in turns (nested, jet, jet, nested): ms a step, launches a step
+    and device time from a 3-step profile."""
+    import torch
+
+    from qcpinn_tpu_torch import bench, north_star as ns
+    from qcpinn_tpu_torch.train.loop import WARMUP_STEPS
+
+    args = ns.parse_args(NORTH_STAR_ARGS)
+    ref = NorthStarStepper(args, "loop", dev, stage=1, eager=True, plain_residual=True)
+    got = NorthStarStepper(args, "loop", dev, stage=1)
+    l_ref = take_steps(ref, GRAPH_PARITY_STEPS).tolist()
+    l_got = take_steps(got, GRAPH_PARITY_STEPS).tolist()
+    row = {**graph_parity("stage1_jet", ref, got, l_ref, l_got), "timing": []}
+    del ref, got
+    for plain in (True, False, False, True):
+        st = NorthStarStepper(args, "loop", dev, stage=1, plain_residual=plain)
+        take_steps(st, WARMUP_STEPS + 2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(take_steps(st, GRAPH_TIME_STEPS)[-1])
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / GRAPH_TIME_STEPS
+        row["timing"].append({"residual": "nested_jvp" if plain else "jet",
+                              **bench.profile(st, 1e3 * dt, steps=3, top=6)})
+        del st
+        torch.cuda.empty_cache()
+    emit({"phase": "stage1_jet", "parity_steps": GRAPH_PARITY_STEPS,
+          "tol": {"loss_rtol": 2e-5, "params": "2e-4*max(|ref|,1e-3)"}, **row,
+          "card": smi})
 
 
 def stage2_rate(tree: str):
@@ -1281,6 +1378,79 @@ def loop_step_costs():
         del x, xr, xi, gr, gi, y
     emit({"loop_step_costs": out, "n_qubits": n, "batch": b,
           "launch": lk.launch_plan(dev, lp, b), "card": nvidia_smi_line()})
+
+
+def unrolled_step_costs():
+    """``--unrolled-step-costs``: K4's two routes (warp, CTA) at 8 qubits on
+    29-step tables of one step kind each (the 8q program's length): mats on
+    a lane bit and on a register bit of the warp route (controlled too),
+    diag, u2q on two lane bits, on a lane and a register bit and on two
+    register bits; then the 8q program itself and a one-step table (the
+    launch, loads and stores); graph ms at the 8q main path's two batches,
+    the warp route's ms a step over the one-step table; one JSON line."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from qcpinn_tpu_torch.ops import sv_kernel as sk
+    from qcpinn_tpu_torch.ops.circuit import DVCircuit
+
+    n, steps = SV_QUBITS, 29
+    S = sk.Step
+    # wire w is bit n-1-w: wires 0-4 are the warp route's lane bits at 8q
+    kinds = {
+        "mat_lane": [S("1q", wire=g % 5, mat=g) for g in range(steps)],
+        "mat_reg": [S("1q", wire=5 + g % 3, mat=g) for g in range(steps)],
+        "mat_lane_ctrl": [S("c1q", ctrl=5 + g % 3, wire=g % 5, mat=g) for g in range(steps)],
+        "diag": [S("diag", phase=g % 2) for g in range(steps)],
+        "u2q_lanes": [S("u2q", ctrl=g % 5, wire=(g + 1) % 5, u4=0) for g in range(steps)],
+        "u2q_lane_reg": [S("u2q", ctrl=g % 5, wire=5 + g % 3, u4=0) for g in range(steps)],
+        "u2q_regs": [S("u2q", ctrl=5 + g % 3, wire=5 + (g + 1) % 3, u4=0)
+                     for g in range(steps)],
+        "one_step": [S("diag", phase=0)],
+    }
+    u = np.linalg.qr(np.random.default_rng(0).normal(size=(4, 4, 2)).view(np.complex128)[..., 0])[0]
+    programs = {name: sk.MicroProgram(
+        n, tuple(rows), sum(st.kind in ("1q", "c1q") for st in rows),
+        2 if name == "diag" else 1, (u.astype(np.complex64),)) for name, rows in kinds.items()}
+    dev = torch.device("cuda")
+    eng = sk.FusedCircuit(DVCircuit(n, 1, "cross_mesh", seed=42))
+    programs["program_8q"] = eng.mp_evolve
+    gen = torch.Generator(device=dev).manual_seed(5)
+    u4 = torch.view_as_real(torch.tensor(u, dtype=torch.complex64)).reshape(1, 32).to(dev)
+    out = {}
+    for b, _ in SV_BATCHES:
+        x = torch.randn(4, b, 1 << n, generator=gen, device=dev)
+        yr, yi, gr, gi = (x[i].contiguous() for i in range(4))
+        rows = {}
+        for name, mp in programs.items():
+            k, p = max(mp.num_mats, 1), max(mp.num_phases, 1)
+            m = torch.linalg.qr(torch.randn(b, k, 2, 2, dtype=torch.complex64, device=dev))[0]
+            phi = torch.rand(p, 1 << n, generator=gen, device=dev)
+            banks = (m.real.contiguous(), m.imag.contiguous(), torch.cos(phi), torch.sin(phi),
+                     eng.constants(dev).u4 if name == "program_8q" else u4)
+            rows[name] = {
+                "steps": len(mp.steps),
+                "warp_graph_ms": graph_ms(
+                    lambda: sk.unrolled_bwd_warp_partials(yr, yi, gr, gi, *banks, mp)),
+                "cta_graph_ms": graph_ms(
+                    lambda: sk.unrolled_bwd_cta_partials(yr, yi, gr, gi, *banks, mp)),
+            }
+        fixed = rows["one_step"]["warp_graph_ms"]
+        for name, r in rows.items():
+            if r["steps"] > 1:
+                r["warp_ms_per_step"] = (r["warp_graph_ms"] - fixed) / (r["steps"] - 1)
+        out[str(b)] = rows
+        del x, yr, yi, gr, gi
+    mp8 = programs["program_8q"]
+    warps, smem, grid, ctas = sk.warp_config(dev, n, mp8.num_mats, mp8.num_phases,
+                                             len(mp8.u4s), SV_BATCHES[0][0])
+    emit({"unrolled_step_costs": out, "n_qubits": n,
+          "warp_launch_at_8q_main": {"warps_per_cta": warps, "smem_per_cta": smem,
+                                     "grid": grid, "ctas_per_sm": ctas},
+          "card": nvidia_smi_line()})
 
 
 # (n, layers, hi_bits, B): the 12q pair's sizes and uneven splits (at B =
@@ -1903,6 +2073,8 @@ def main():
         return stage2_rate(sys.argv[2])
     if sys.argv[1:] == ["--loop-step-costs"]:
         return loop_step_costs()
+    if sys.argv[1:] == ["--unrolled-step-costs"]:
+        return unrolled_step_costs()
     if sys.argv[1:] == ["--cluster-kernels"]:
         return cluster_kernels()
     if len(sys.argv) == 3 and sys.argv[1] == "--rates":
@@ -2036,6 +2208,8 @@ def main():
     # -- 6b. graph: every captured step against its eager version ----------
     graph_phase(dev, smi)
     torch.cuda.empty_cache()
+    stage1_jet_phase(dev, smi)
+    torch.cuda.empty_cache()
 
     # -- 7-10. the 16q north-star path through the gate-loop kernels ---------
     loop_results = loop_phases(dev, gen, card_peaks, smi,
@@ -2050,7 +2224,8 @@ def main():
     torch.cuda.empty_cache()
 
     # -- 11-15. the 8q main path and the plain solver through K3/K4 ----------
-    unrolled_results = unrolled_phases(dev, gen, card_peaks, smi, floor)
+    unrolled_results = unrolled_phases(dev, gen, card_peaks, smi,
+                                       ptxas_registers(built["unrolled_sv"][2]), floor)
     k4b_after = k4b_probe(dev, gen, "after the 16q phases")
     emit({"phase": "k4b_question", **{
         f"{key}_{when}": row[key] for when, row in (("before", k4b_before),

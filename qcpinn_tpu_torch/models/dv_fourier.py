@@ -25,6 +25,17 @@ from ..ops import DVCircuit, make_fused_backend
 from . import nn_core as nc
 
 
+class ZeroQ:
+    """The quantum block zeroed (the north-star run's stage 1): z = 0, the
+    circuit never runs."""
+
+    def __init__(self, n: int):
+        self.n = n
+
+    def apply(self, qp, x):
+        return torch.zeros((x.shape[0], self.n), dtype=x.dtype, device=x.device)
+
+
 class DVFourierSolver(nn.Module):
     def __init__(
         self,
@@ -110,3 +121,31 @@ class DVFourierSolver(nn.Module):
         if self.rbf is not None:
             out = out + nc.rbf_apply(self.rbf, x)
         return out
+
+    def jet(self, x: torch.Tensor, cols2: range):
+        """``forward`` with its first derivative along each input column
+        and its second along each column of ``cols2``, in one pass (the
+        jets of ``nn_core``): (out [B, out], tangents [in + len(cols2), B,
+        out]). Only with the quantum block zeroed (stage 1): z = 0 carries
+        no tangent, so the angle layer never reaches the output and is
+        skipped, and the first post layer sees only its skip columns.
+        Raises unless the quantum block is ``ZeroQ``."""
+        if not isinstance(self.qblock, ZeroQ):
+            raise ValueError("DVFourierSolver.jet takes the quantum block "
+                             "zeroed (ZeroQ, stage 1)")
+        ff, t_ff = nc.fourier_features_jet(self.B, x, cols2)
+        h = torch.cat([x, ff], dim=-1)
+        th = torch.cat([nc.input_jet(x, cols2), t_ff], dim=-1)
+        for layer in self.pre[:-1]:
+            h, th = nc.tanh_jet(*nc.linear_jet(layer, h, th), cols2)
+        skip, t_skip = nc.tanh_jet(*nc.linear_jet(self.skip[0], h, th), cols2)
+        post = self.post
+        h, th = nc.tanh_jet(*nc.linear_jet(post[0], skip, t_skip,
+                                           post[0].weight[:, self.n:]), cols2)
+        for layer in post[1:-1]:
+            h, th = nc.tanh_jet(*nc.linear_jet(layer, h, th), cols2)
+        out, t_out = nc.linear_jet(post[-1], h, th)
+        if self.rbf is not None:
+            r, t_r = nc.rbf_jet(self.rbf, x, cols2)
+            out, t_out = out + r, t_out + t_r
+        return out, t_out

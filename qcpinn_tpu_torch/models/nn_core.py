@@ -121,3 +121,76 @@ def rbf_apply(params, x: torch.Tensor) -> torch.Tensor:
     # so a few bad optimizer steps on v cannot overflow exp(-q) to inf
     out = torch.exp(-torch.clamp(q, min=-30.0)) @ params["a"]
     return out[:, None] if out.ndim == 1 else out
+
+
+# -- second-order forward jets --------------------------------------------------
+# A jet is a primal [B, k] and its tangents [d + len(cols2), B, k]: the
+# derivative along each of the d input columns, then the second derivative
+# along each column of ``cols2`` (a range of input columns). Every input
+# column moves on its own, so a second-order channel needs only its own
+# first-order one.
+
+
+def input_jet(x: torch.Tensor, cols2: range) -> torch.Tensor:
+    """The tangents of the input itself: the unit row e_c along column c,
+    0 in the second-order channels."""
+    d = x.shape[1]
+    eye = torch.eye(d + len(cols2), d, dtype=x.dtype, device=x.device)
+    return eye[:, None, :].expand(-1, x.shape[0], d)
+
+
+def linear_jet(layer: nn.Linear, h: torch.Tensor, th: torch.Tensor,
+               weight: Optional[torch.Tensor] = None):
+    """``linear_apply`` of a jet: one product over all tangent channels, the
+    bias on the primal only. ``weight`` overrides the layer's (a column
+    slice of it)."""
+    w = layer.weight if weight is None else weight
+    return F.linear(h, w, layer.bias), F.linear(th, w)
+
+
+def tanh_jet(a: torch.Tensor, ta: torch.Tensor, cols2: range):
+    """``y = tanh(a)``, ``s = 1 - y^2``: ``y' = s a'``,
+    ``y'' = s a'' - 2 y s a'^2``."""
+    n1 = ta.shape[0] - len(cols2)
+    y = torch.tanh(a)
+    s = 1.0 - y * y
+    t1 = s * ta[:n1]
+    t2 = s * ta[n1:] - 2.0 * y * s * ta[cols2.start:cols2.stop] ** 2
+    return y, torch.cat([t1, t2])
+
+
+def fourier_features_jet(B: torch.Tensor, x: torch.Tensor, cols2: range):
+    """``fourier_features_apply`` of the input's jet. ``p = 2 pi x B`` has
+    the constant row ``2 pi B[c]`` as its tangent along column c and
+    ``p'' = 0``, so ``sin' = cos p'``, ``sin'' = -sin p'^2``, and the same
+    for cos."""
+    dp = 2.0 * math.pi * B.detach()  # [in, m]: dp/dx_c, one row per column
+    p = 2.0 * math.pi * (x @ B.detach())
+    sn, cs = torch.sin(p), torch.cos(p)
+    dp1, dp2 = dp[:, None, :], (dp[cols2.start:cols2.stop] ** 2)[:, None, :]
+    t_sin = torch.cat([cs * dp1, -sn * dp2])
+    t_cos = torch.cat([-sn * dp1, -cs * dp2])
+    return torch.cat([sn, cs], dim=-1), torch.cat([t_sin, t_cos], dim=-1)
+
+
+def rbf_jet(params, x: torch.Tensor, cols2: range):
+    """``rbf_apply`` of the input's jet: ``g = exp(-clamp(q, -30))``,
+    ``q' = 2 w_c^2 (x_c - c_c) + v_c``, ``q'' = 2 w_c^2``, ``g' = -g q'``,
+    ``g'' = g (q'^2 - q'')``, and no tangent where the clamp holds (as jvp
+    through ``torch.clamp`` gives)."""
+    c, w, v, a = params["c"], params["w"], params["v"], params["a"]
+    d = x[:, None, :] - c[None, :, :]
+    q = torch.sum((w[None, :, :] * d) ** 2, dim=-1) + torch.sum(
+        v[None, :, :] * x[:, None, :], dim=-1)
+    g = torch.exp(-torch.clamp(q, min=-30.0))  # [B, K]
+    w2 = w * w
+    dq = 2.0 * w2[None] * d + v[None]  # [B, K, in]: dq/dx_c
+    lo, hi = cols2.start, cols2.stop
+    gl = (g * (q >= -30.0))[..., None]
+    t1 = -gl * dq
+    t2 = gl * (dq[..., lo:hi] ** 2 - 2.0 * w2[None, :, lo:hi])
+    tg = torch.cat([t1, t2], dim=-1).permute(2, 0, 1)  # [in + len(cols2), B, K]
+    out, t_out = g @ a, tg @ a
+    if out.ndim == 1:
+        return out[:, None], t_out[..., None]
+    return out, t_out

@@ -6,12 +6,12 @@ script's: 16 qubits, cross_mesh, B = 256 residual points plus five value
 walls of 85, hidden 64, Fourier map 32 (scale 4), skip 32, an additive
 8-unit RBF head (width 8) with centers drawn where |forcing| is large,
 pulse-focused residual sampling, and classical-then-quantum staging:
-stage 1 trains with a zeroed quantum block (residual by nested forward
-AD), then the decoder's quantum-feature columns are scaled by
-``--z-rescale`` and stage 2 trains the full model at ``lr / 5`` with the
-tangent-stream residual (n >= 10). Each stage is Adam with global-norm
-clipping and a cosine horizon; each runs one warm-up chunk, then chunks
-until its wall-clock budget or its step horizon.
+stage 1 trains with a zeroed quantum block (residual by a second-order
+forward jet, ``physics/jet.py``), then the decoder's quantum-feature
+columns are scaled by ``--z-rescale`` and stage 2 trains the full model at
+``lr / 5`` with the tangent-stream residual (n >= 10). Each stage is Adam
+with global-norm clipping and a cosine horizon; each runs one warm-up
+chunk, then chunks until its wall-clock budget or its step horizon.
 
     python -m qcpinn_tpu_torch.north_star [--backend loop] [--minutes 4.5]
 
@@ -51,8 +51,9 @@ from .bench import card
 from .config import QCPINNConfig
 from .data import diffusion as dd
 from .models import nn_core as nc
-from .models.dv_fourier import DVFourierSolver
+from .models.dv_fourier import DVFourierSolver, ZeroQ
 from .models.dv_solver import DVSolver
+from .physics.jet import diffusion_jet
 from .physics.operators_fwd import diffusion_operator_fwd
 from .physics.streams import dv_diffusion_residual_streams
 from .train import optim as topt
@@ -104,16 +105,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--lr2", type=float, default=None,
                     help="stage-2 lr (default lr/5)")
     return ap.parse_args(argv)
-
-
-class ZeroQ:
-    """Stage 1's quantum block: z = 0, the circuit never runs."""
-
-    def __init__(self, n: int):
-        self.n = n
-
-    def apply(self, qp, x):
-        return torch.zeros((x.shape[0], self.n), dtype=x.dtype, device=x.device)
 
 
 class IdentityQ:
@@ -249,26 +240,31 @@ class Stage:
 
 
 def make_stage(model, cfg, args, terms, label: str, backend: str = "block",
-               use_streams: bool = False, optimizer=None) -> Stage:
+               use_streams: bool = False, optimizer=None,
+               residual_fn=None) -> Stage:
     """Set ``model`` up for one stage and build its training state.
     ``stage1``: the zeroed quantum block (the decoder sees z = 0, so the
     circuit never runs and the z-columns of the first post layer get zero
-    gradient), ``args.lr``, horizon ``--stage1-steps``. ``stage2``: the
-    circuit on ``backend``, lr ``--lr2`` (default lr / 5); ``train`` (the
-    one stage): the circuit at ``args.lr``; both with horizon
-    ``--total-steps`` and the tangent-stream residual when ``use_streams``.
-    Each stage is clip + cosine Adam (or ``optimizer``) with a sample
-    stream of its own."""
-    residual_fn = None
+    gradient), the residual by the second-order forward jet
+    (``physics/jet.py``), ``args.lr``, horizon ``--stage1-steps``.
+    ``stage2``: the circuit on ``backend``, lr ``--lr2`` (default lr / 5);
+    ``train`` (the one stage): the circuit at ``args.lr``; both with
+    horizon ``--total-steps`` and the tangent-stream residual when
+    ``use_streams``. A given ``residual_fn(X) -> (u, residual)`` replaces
+    the stage's own (its plain version, say, the nested jvps of
+    ``diffusion_operator_fwd``). Each stage is clip + cosine Adam (or
+    ``optimizer``) with a sample stream of its own."""
     if label == "stage1":
         model._fused = ZeroQ(cfg.num_qubits)
         lr, horizon = args.lr, args.stage1_steps
+        if residual_fn is None:
+            residual_fn = lambda X: diffusion_jet(model, X)  # noqa: E731
     else:
         set_engine(model, args, backend)
         lr = args.lr if label == "train" else (
             args.lr2 if args.lr2 is not None else args.lr / 5.0)
         horizon = args.total_steps
-        if use_streams:
+        if use_streams and residual_fn is None:
             residual_fn = lambda X: dv_diffusion_residual_streams(model, X)  # noqa: E731
     optimizer = optimizer or topt.make_optimizer(lr, grad_clip=1.0, schedule="cosine",
                                                  epochs=horizon)

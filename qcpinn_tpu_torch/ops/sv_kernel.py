@@ -15,11 +15,15 @@ per-sample RX gates and the state starts at ``|0...0>``.
   whole program; the partner across wire w is ``i ^ (1 << (n-1-w))``.
 - ``unrolled_bwd`` replaces ``pallas_sv.py::_backward_kernel``: the reverse
   sweep with inverse gates, O(1) extra state. It writes the per-sample
-  matrix cotangent ``[B, K, 2, 2]`` (a fixed-order block reduction per
-  step) and the input cotangent; the ``[P, 2^n]`` phase cotangents are
-  batch sums, written into one slab per CTA of a persistent grid, and
-  ``unrolled_reduce`` adds the slabs in a fixed order (no float atomics,
-  deterministic).
+  matrix cotangent ``[B, K, 2, 2]`` and the input cotangent; the
+  ``[P, 2^n]`` phase cotangents are batch sums, written into one slab per
+  CTA of a persistent grid, and ``unrolled_reduce`` adds the slabs in a
+  fixed order (no float atomics, deterministic). Two routes, picked by n
+  (:func:`unrolled_bwd_partials`): at n <= 9 ``unrolled_bwd_warp`` holds a
+  sample in one warp's registers (no barrier in the sweep; the phase
+  cotangents stay in registers over the warp's samples); at 10 <= n <= 12
+  ``unrolled_bwd_cta`` holds it in a CTA's shared memory, one thread per
+  amplitude pair and a barrier a step.
 
 The program reaches the kernels as a step table passed by value in the
 kernel parameters, so nothing is compiled per circuit: Mosaic's per-circuit
@@ -49,6 +53,7 @@ import torch
 
 from . import cuda_build, gates
 from . import loop_kernel as lk
+from .block_kernel import SMEM_MAX
 from . import statevector as sv
 from .circuit import DVCircuit
 from .diag_fusion import DiagRun
@@ -57,10 +62,13 @@ MAX_QUBITS = 12  # one sample and its cotangent fit in a CTA's shared memory
 MAX_STEPS = lk.MAX_STEPS  # GT_MAX_STEPS in csrc/gate_table.cuh
 MAX_BANK = lk.MAX_BANK  # the step word keeps a 16-bit bank index
 MAX_THREADS = 512  # GT_MAX_THREADS
+WARP_MAX_QUBITS = 9  # UW_MAX_QUBITS: the warp route's sample fits in registers
+WARPS = 8  # UW_MAX_WARPS, warps a CTA of the warp route
 
 LAUNCHES = {
     "unrolled_fwd": 0,
     "unrolled_bwd": 0,
+    "unrolled_bwd_warp": 0,
     "unrolled_reduce": 0,
     "unrolled_fwd_ref": 0,
     "unrolled_bwd_ref": 0,
@@ -328,8 +336,11 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.qc_unrolled_fwd.argtypes = [p] * 9 + [i] * 4 + [p, i, p]
         lib.qc_unrolled_bwd.argtypes = [p] * 14 + [i] * 5 + [p, i, i, p]
+        lib.qc_unrolled_bwd_warp.argtypes = [p] * 14 + [i] * 6 + [p, i, i, p]
+        lib.qc_unrolled_bwd_warp_occupancy.argtypes = [i, i, i, ctypes.POINTER(i)]
         lib.qc_unrolled_reduce.argtypes = [p, p, i, i, p]
-        for fn in (lib.qc_unrolled_fwd, lib.qc_unrolled_bwd, lib.qc_unrolled_reduce):
+        for fn in (lib.qc_unrolled_fwd, lib.qc_unrolled_bwd, lib.qc_unrolled_bwd_warp,
+                   lib.qc_unrolled_bwd_warp_occupancy, lib.qc_unrolled_reduce):
             fn.restype = i
         lib.qc_unrolled_error_string.argtypes = [i]
         lib.qc_unrolled_error_string.restype = ctypes.c_char_p
@@ -415,7 +426,7 @@ def unrolled_fwd(xr, xi, mre, mim, cos, sin, u4, mp: MicroProgram):
 
 
 def grid_size(device: torch.device, b: int, n: int) -> int:
-    """Persistent backward grid: up to 2048 threads' worth of CTAs per SM
+    """The CTA route's persistent grid: up to 2048 threads' worth of CTAs an SM
     (at most 8), never more than the batch."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     per_sm = max(1, min(8, 2048 // threads(n)))
@@ -440,10 +451,99 @@ def unrolled_reduce(partials: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def warp_smem(n: int, k: int, p: int, u: int) -> Tuple[int, int]:
+    """Shared-memory bytes of the warp route: (a warp's, the CTA's own).
+    A warp holds the sample's ``[2, K, 2, 2]`` matrix cotangents and
+    matrices and its ``[2, P, 2^n]`` phase cotangents; the CTA one copy of
+    the ``[2, P, 2^n]`` phase rows and the ``[U, 32]`` 4x4s."""
+    pd = p * (1 << n)
+    return 4 * (16 * k + 2 * pd), 4 * (2 * pd + 32 * u)
+
+
+@functools.lru_cache(maxsize=64)
+def _warp_blocks(device_index: int, n: int, warps: int, smem: int) -> int:
+    """CTAs of the warp route one SM holds at once (the occupancy query)."""
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        lib = _lib()
+        _raise_on(lib, lib.qc_unrolled_bwd_warp_occupancy(n, warps, smem,
+                                                          ctypes.byref(blocks)),
+                  "unrolled_bwd_warp occupancy")
+    return blocks.value
+
+
+def warp_config(device: torch.device, n: int, k: int, p: int, u: int, b: int):
+    """(warps a CTA, shared bytes a CTA, grid, CTAs an SM) of the warp
+    route. Its registers (about 150 a thread at 8 qubits) cap the warps an
+    SM holds, and how many of them fit depends on the CTA size: of 8, 4 and
+    2 warps a CTA (as far as SMEM_MAX allows) it takes the size that keeps
+    the most warps resident (the occupancy query), the larger on a tie
+    (fewer slabs for the slab sum). A persistent grid of as many CTAs as
+    the SMs hold at once, never more than the batch needs."""
+    per_warp, shared = warp_smem(n, k, p, u)
+    fit = (SMEM_MAX - shared) // per_warp
+    if fit < 1:
+        raise ValueError(f"unrolled_bwd_warp: {per_warp} shared bytes a warp and "
+                         f"{shared} a CTA (K = {k}, P = {p}, U = {u}) > {SMEM_MAX}")
+    best = None
+    for warps in sorted({min(w, fit) for w in (WARPS, 4, 2)}, reverse=True):
+        smem = warps * per_warp + shared
+        blocks = _warp_blocks(device.index or 0, n, warps, smem)
+        if best is None or blocks * warps > best[0] * best[1]:
+            best = (blocks, warps, smem)
+    blocks, warps, smem = best
+    if blocks < 1:
+        raise ValueError(f"unrolled_bwd_warp: no CTA of {warps} warps and {smem} "
+                         "shared bytes fits an SM")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return warps, smem, max(1, min(-(-b // warps), blocks * sms)), blocks
+
+
 def unrolled_bwd_partials(yr, yi, gr, gi, mre, mim, cos, sin, u4, mp: MicroProgram):
     """Backward kernel alone (CUDA tensors only): returns (gxr, gxi, gmre,
     gmim, partials [G, 2 * P * 2^n]); :func:`unrolled_reduce` finishes the
-    phase sums. A slab is cos's layout, then sin's."""
+    phase sums. A slab is cos's layout, then sin's. The route by n: the
+    warp kernel at n <= WARP_MAX_QUBITS, the CTA kernel above."""
+    route = (unrolled_bwd_warp_partials if mp.n <= WARP_MAX_QUBITS
+             else unrolled_bwd_cta_partials)
+    return route(yr, yi, gr, gi, mre, mim, cos, sin, u4, mp)
+
+
+def unrolled_bwd_warp_partials(yr, yi, gr, gi, mre, mim, cos, sin, u4,
+                               mp: MicroProgram):
+    """The warp route of :func:`unrolled_bwd_partials` (1 <= n <= 9): one
+    warp a sample, its state and cotangent in registers."""
+    _check_cuda(mp, (yr, yi, gr, gi), mre, mim, cos, sin, u4)
+    if mp.n > WARP_MAX_QUBITS:
+        raise ValueError(f"unrolled_bwd_warp takes n <= {WARP_MAX_QUBITS}; got n = {mp.n}")
+    b = yr.shape[0]
+    if b == 0:
+        raise ValueError("unrolled_bwd needs a non-empty batch")
+    lib = _lib()
+    words = step_words(mp)
+    k, p, u = mre.shape[1], cos.shape[0], u4.shape[0]
+    warps, _, g, _ = warp_config(yr.device, mp.n, k, p, u, b)
+    gxr, gxi = torch.empty_like(yr), torch.empty_like(yi)
+    gmre, gmim = torch.empty_like(mre), torch.empty_like(mim)
+    partials = torch.empty((g, 2 * cos.numel()), dtype=torch.float32,
+                           device=yr.device)
+    err = lib.qc_unrolled_bwd_warp(
+        yr.data_ptr(), yi.data_ptr(), gr.data_ptr(), gi.data_ptr(),
+        mre.data_ptr(), mim.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+        u4.data_ptr(), gxr.data_ptr(), gxi.data_ptr(), gmre.data_ptr(),
+        gmim.data_ptr(), partials.data_ptr(), b, mp.n, k, p, u, warps,
+        words.ctypes.data, len(words), g,
+        torch.cuda.current_stream(yr.device).cuda_stream,
+    )
+    _raise_on(lib, err, "unrolled_bwd_warp")
+    LAUNCHES["unrolled_bwd_warp"] += 1
+    return gxr, gxi, gmre, gmim, partials
+
+
+def unrolled_bwd_cta_partials(yr, yi, gr, gi, mre, mim, cos, sin, u4,
+                              mp: MicroProgram):
+    """The CTA route of :func:`unrolled_bwd_partials` (the route at 10 <= n
+    <= 12; it takes any 1 <= n <= 12): one CTA a sample in shared memory."""
     _check_cuda(mp, (yr, yi, gr, gi), mre, mim, cos, sin, u4)
     b = yr.shape[0]
     if b == 0:

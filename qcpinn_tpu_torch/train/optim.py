@@ -27,19 +27,33 @@ from typing import Callable, Iterable, List, NamedTuple, Optional, Sequence
 import torch
 
 
+def _clip_factors(grads: List[torch.Tensor], max_norm: float):
+    """(divisor, factor, global norm) of optax's clip: ``g / norm *
+    max_norm`` where the norm reaches ``max_norm``, else 1 and 1 (``g``
+    exactly). No host synchronisation: the branch is a ``torch.where``."""
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    keep = norm < max_norm
+    one = torch.ones_like(norm)
+    return torch.where(keep, one, norm), torch.where(keep, one, one * max_norm), norm
+
+
 def clip_grads(grads: Sequence[torch.Tensor], max_norm: float):
-    """(clipped grads, global norm), optax's formula. No host
-    synchronisation: the branch is a ``torch.where``."""
-    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-    return [torch.where(norm < max_norm, g, g / norm * max_norm) for g in grads], norm
+    """(clipped grads, global norm), optax's formula, on multi-tensor ops
+    (a few launches for all the leaves)."""
+    grads = list(grads)
+    div, factor, norm = _clip_factors(grads, max_norm)
+    clipped = torch._foreach_div(grads, div)
+    torch._foreach_mul_(clipped, factor)
+    return clipped, norm
 
 
+@torch.no_grad()
 def clip_by_global_norm(params: Iterable[torch.nn.Parameter], max_norm: float):
     """Clip the ``.grad`` of ``params`` in place; returns the global norm."""
     grads = [p.grad for p in params if p.grad is not None]
-    clipped, norm = clip_grads(grads, max_norm)
-    for g, c in zip(grads, clipped):
-        g.copy_(c)
+    div, factor, norm = _clip_factors(grads, max_norm)
+    torch._foreach_div_(grads, div)
+    torch._foreach_mul_(grads, factor)
     return norm
 
 
@@ -107,19 +121,28 @@ def make_optimizer(
     @torch.no_grad()
     def update(grads, state: AdamState, params):
         """(updates, state): ``state``'s moments and count are updated in
-        place and it is returned as it came."""
+        place and it is returned as it came. optax's ``scale_by_adam`` in
+        its order of operations, on multi-tensor ops (one launch or two
+        each for all the leaves):
+        ``mu = (1 - b1) g + b1 mu``, ``nu = (1 - b2) g^2 + b2 nu``,
+        ``step * (mu / bc1) / (sqrt(nu / bc2) + eps)``."""
         g = list(grads)
         if grad_clip is not None and grad_clip > 0:
             g, _ = clip_grads(g, grad_clip)
         step = -sched(state.count)
         state.count.add_(1)
-        for t, m, v in zip(g, state.mu, state.nu):
-            m.copy_((1.0 - B1) * t + B1 * m)
-            v.copy_((1.0 - B2) * t * t + B2 * v)
+        torch._foreach_mul_(state.mu, B1)
+        torch._foreach_add_(state.mu, torch._foreach_mul(g, 1.0 - B1))
+        torch._foreach_mul_(state.nu, B2)
+        torch._foreach_add_(state.nu, torch._foreach_mul(torch._foreach_mul(g, g), 1.0 - B2))
         bc1 = 1.0 - torch.pow(B1, state.count)
         bc2 = 1.0 - torch.pow(B2, state.count)
-        updates = [step * ((m / bc1) / (torch.sqrt(v / bc2) + EPS))
-                   for m, v in zip(state.mu, state.nu)]
+        updates = torch._foreach_div(state.mu, bc1)
+        denom = torch._foreach_div(state.nu, bc2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, EPS)
+        torch._foreach_div_(updates, denom)
+        torch._foreach_mul_(updates, step)
         return updates, state
 
     return GradientTransformation(init, update)
@@ -127,9 +150,8 @@ def make_optimizer(
 
 @torch.no_grad()
 def apply_updates(params: Sequence[torch.Tensor], updates) -> None:
-    """params += updates, in place."""
-    for p, u in zip(params, updates):
-        p.add_(u)
+    """params += updates, in place (one multi-tensor op)."""
+    torch._foreach_add_(list(params), list(updates))
 
 
 class PlateauState(NamedTuple):

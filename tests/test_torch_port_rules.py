@@ -270,3 +270,50 @@ def test_unrolled_cpu_tensors_take_the_plain_version():
     assert sk.LAUNCHES == {**{k: 0 for k in sk.LAUNCHES},
                            "unrolled_fwd_ref": 1, "unrolled_bwd_ref": 1}
     assert out.shape == (3, 8) and params.grad is not None and x.grad is not None
+
+
+def test_unrolled_bwd_routes_by_qubits(monkeypatch):
+    """K4 takes its warp route at n <= 9 and its CTA route above; each
+    route's checks run before any library is loaded."""
+    seen = []
+    for name in ("unrolled_bwd_warp_partials", "unrolled_bwd_cta_partials"):
+        monkeypatch.setattr(sk, name, lambda *a, _n=name: seen.append(_n))
+    for n in (1, 8, 9, 10, 12):
+        mp = sk.compile_circuit(DVCircuit(n, 1, "cross_mesh", seed=42))
+        sk.unrolled_bwd_partials(*[None] * 9, mp)
+    assert seen == ["unrolled_bwd_warp_partials"] * 3 + ["unrolled_bwd_cta_partials"] * 2
+    monkeypatch.undo()
+    mp = sk.compile_circuit(DVCircuit(10, 1, "cross_mesh", seed=42))
+    d = 1 << 10
+    st = _FakeCuda((3, d))
+    m = _FakeCuda((3, mp.num_mats, 2, 2))
+    ph = _FakeCuda((mp.num_phases, d))
+    u4 = _FakeCuda((len(mp.u4s), 32))
+    with pytest.raises(ValueError, match="n <= 9"):
+        sk.unrolled_bwd_warp_partials(st, st, st, st, m, m, ph, ph, u4, mp)
+    # a warp's [2, K, 2, 2] matrix cotangents and matrices and [2, P, 2^n]
+    # phase cotangents, the CTA's phase rows and 4x4s, in bytes
+    assert sk.warp_smem(8, 25, 2, 2) == (4 * (16 * 25 + 2 * 2 * 256), 4 * (2 * 2 * 256 + 64))
+    with pytest.raises(ValueError, match="shared bytes a warp"):
+        sk.warp_config(torch.device("cuda", 0), 9, 10, 40, 2, 37)
+    assert sk._LIB is None
+
+
+def test_warp_route_takes_the_cta_size_that_keeps_most_warps(monkeypatch):
+    """Of 8, 4 and 2 warps a CTA the warp route takes the one the SM holds
+    most warps of (ties to the larger), with a grid that covers the batch
+    at most once."""
+    resident = {8: 1, 4: 3, 2: 6}  # CTAs an SM: 8, 12, 12 warps
+
+    def blocks(dev, n, warps, smem):
+        assert smem == warps * sk.warp_smem(n, 25, 2, 2)[0] + sk.warp_smem(n, 25, 2, 2)[1]
+        return resident[warps]
+
+    monkeypatch.setattr(sk, "_warp_blocks", blocks)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: type("P", (), {"multi_processor_count": 132}))
+    dev = torch.device("cuda", 0)
+    assert sk.warp_config(dev, 8, 25, 2, 2, 6144)[::2] == (4, 396)
+    assert sk.warp_config(dev, 8, 25, 2, 2, 682)[::2] == (4, 171)
+    resident.update({8: 2, 4: 4})  # 16 warps either way: the larger CTA
+    assert sk.warp_config(dev, 8, 25, 2, 2, 6144)[::2] == (8, 264)
