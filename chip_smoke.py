@@ -102,7 +102,8 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                loop, block: the step time spreads across processes), and a
                torch.profiler window of each.
 11. unrolled_shapes the unrolled kernels (K3/K4 and the slab reduction
-               K4b; K4 on its warp route at n <= 9, its CTA route above)
+               K4b; both on their warp routes at n <= 9, their tile
+               routes, a segment of the program a barrier, above)
                against their plain versions, with the encoding (from
                |0...0>) and evolve-only: cross_mesh n = 1, 2, 4, 7, 8, 9,
                10, 12, cascade n = 3 (2 layers), 8 and 9 (controlled gates,
@@ -112,27 +113,30 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                <= 3e-5 absolute on unit-norm states (tests/test_pallas_sv.py),
                backward <= 2e-4 * max|ref| per output, bit-equal across two
                runs.
-12. unrolled_kernels K3, K4 (warp route) and K4b at the 8q main path's
-               shapes (the evolve of B = 6144 stream rows, the apply of B =
-               682 value rows), with K4's CTA route on the same inputs
-               beside it, and the CTA route at the 10q north_star_plain
-               shapes (B = 1536 and 425); same limits, with times beside the
-               plain versions and the plain block engine's einsum chain,
-               and the warp route's warps, shared memory and CTAs an SM.
+12. unrolled_kernels K3, K4 and K4b on the warp routes at the 8q main
+               path's shapes (the evolve of B = 6144 stream rows, the apply
+               of B = 682 value rows), with the tile routes on the same
+               inputs beside them, and on the tile routes at the 10q
+               north_star_plain shapes (B = 1536 and 425); same limits,
+               with times beside the plain versions and the plain block
+               engine's einsum chain (K3) or its autograd backward (K4),
+               all graph-timed, the launch (warps or threads, shared
+               memory, grid, CTAs an SM), the segments and the registers.
 13. step_parity_8q one 8q bench step through ``unrolled`` against the plain
                block engine; limits as in 5.
 14. train_8q   the 8q main path: the bench train step at 8 qubits (``auto``
                picks FusedCircuit), a captured CUDA graph, driven as in 6
                with the launch counters set to 0 just before: every loss finite,
-               K3, K4's warp route and K4b launched exactly twice in each
-               step the counters see, K4's CTA route and no plain version
-               called; then a torch.profiler window.
+               K3 and K4 on their warp routes and K4b launched exactly twice
+               in each step the counters see, the tile routes and no plain
+               version called; then a torch.profiler window.
 15. north_star_plain ``north_star.run`` with --solver plain (DVSolver, one
                stage) at 10 qubits, B = 256, hidden 64, --backend unrolled,
                50 steps, then the 20^3 evaluation by streams: every loss
-               finite, K3 launched twice per step the counters see and twice
-               per evaluation chunk, K4 (its CTA route) and K4b twice per
-               step they see, K4's warp route and no plain version called.
+               finite, K3's tile route launched twice per step the counters
+               see and twice per evaluation chunk, K4's tile route and K4b
+               twice per step they see, the warp routes and no plain
+               version called.
 
 16. cluster_kernels the cluster pair (K1/K2 at 13-16 qubits) and K2b at 16
                qubits with B = 1536 stream rows and B = 425 value rows, and
@@ -157,13 +161,15 @@ Every reduction row (phases 4, 8, 12, 16) has ``graph_ms``, torch.sum's
 ``library_graph_ms``, its bound and the launch floor. Then the run's
 seconds, the kernel summary line, the nvidia-smi line, and the result line.
 
-Five measurements beside the smoke test:
+Seven measurements beside the smoke test:
 
     python3 chip_smoke.py --stage2-rate TREE   # the 16q stage-2 step of TREE's package
     python3 chip_smoke.py --loop-step-costs    # K5/K6 time per step kind at 16q
-    python3 chip_smoke.py --unrolled-step-costs  # K4's routes per step kind at 8q
+    python3 chip_smoke.py --unrolled-step-costs  # K3/K4 per step kind and segment, 8q and 10q
     python3 chip_smoke.py --cluster-kernels    # build, kernel_shapes, cluster_kernels
     python3 chip_smoke.py --rates TREE         # TREE's rows of phase 4 and step_parity
+    python3 chip_smoke.py --unrolled           # build, unrolled_shapes, unrolled_kernels
+    python3 chip_smoke.py --sv-rates TREE      # TREE's K3/K4, their digests, 8q and 10q steps
 """
 
 import json
@@ -785,6 +791,11 @@ SV_SHAPES = (  # (n, ansatz, layers, seed, encoding, B)
     (7, "cross_mesh", 1, 42, "angle", 37), (8, "cross_mesh", 1, 42, "angle", 37),
     (9, "cross_mesh", 1, 42, "angle", 37), (10, "cross_mesh", 1, 42, "angle", 37),
     (12, "cross_mesh", 1, 42, "angle", 37), (8, "cascade", 1, 11, "angle", 37),
+    # the tile route with controlled gates (cascade), with the phase rows
+    # read through __ldg (layered, 2 layers: the slab in shared memory) and
+    # with the slab in the partials too (alternate: 11 phase rows)
+    (12, "cascade", 1, 11, "angle", 37), (12, "layered", 2, 42, "angle", 37),
+    (12, "alternate", 1, 42, "angle", 37),
     (8, "layered", 3, 42, "angle", 37), (8, "cross_mesh", 1, 42, "amplitude", 37),
     (8, "cross_mesh", 1, 42, "angle", 1), (12, "cross_mesh", 1, 42, "angle", 1),
     # K4's warp route below a warp's 32 lanes (idle lanes) and at 5-6 qubits
@@ -798,14 +809,17 @@ SV_SHAPES = (  # (n, ansatz, layers, seed, encoding, B)
 # the 8q main path: the evolve of 6 x 1024 stream rows, the apply (with the
 # encoding) of 2 x 341 value rows
 SV_BATCHES = ((6 * 1024, "evolve"), (2 * (1024 // 3), "apply"))
-SV_NAMES = ("unrolled_fwd", "unrolled_bwd_warp", "unrolled_reduce")
-# K4's CTA route (10 <= n <= 12) on its main path, north_star_plain at 10
+# the 8q main path's kernels: K3 and K4 on their warp routes, K4b
+SV_NAMES = ("unrolled_fwd_warp", "unrolled_bwd_warp", "unrolled_reduce")
+# the tile routes (10 <= n <= 12) on their main path, north_star_plain at 10
 # qubits: the evolve of 6 x 256 stream rows, the apply of 5 x 85 value rows
-SV_CTA_QUBITS = 10
-SV_CTA_BATCHES = ((6 * 256, "evolve"), (5 * (256 // 3), "apply"))
+SV_TILE_QUBITS = 10
+SV_TILE_BATCHES = ((6 * 256, "evolve"), (5 * (256 // 3), "apply"))
+SV_TILE_NAMES = ("unrolled_fwd_tile", "unrolled_bwd_tile", "unrolled_reduce")
 # the plain version a kernel's launch counter is held against, where it is
-# not the kernel's name with _ref (both K4 routes share one)
-PLAIN_NAME = {"unrolled_bwd_warp": "unrolled_bwd_ref"}
+# not the kernel's name with _ref (each direction's two routes share one)
+PLAIN_NAME = {"unrolled_fwd_warp": "unrolled_fwd_ref", "unrolled_fwd_tile": "unrolled_fwd_ref",
+              "unrolled_bwd_warp": "unrolled_bwd_ref", "unrolled_bwd_tile": "unrolled_bwd_ref"}
 # the plain-solver twin at 10 qubits, bounded by steps: a 25-step warm-up
 # chunk and one timed chunk of 25
 NORTH_STAR_PLAIN_ARGS = ["--solver", "plain", "--qubits", "10", "--backend",
@@ -880,10 +894,10 @@ def check_sv(sk, mp, banks, states, tag):
     return {"fwd_abs": e_fwd, "bwd_abs": e_abs, "bwd_rel": e_rel}, y, y_ref
 
 
-def unrolled_phases(dev, gen, card_peaks, smi, registers, floor):
-    """Phases 11-15; returns the K3/K4/reduction rows of the summary line.
-    ``registers``: ptxas's count per kernel of unrolled_sv.cu; ``floor``:
-    the launch floor (ms)."""
+def unrolled_phases(dev, gen, card_peaks, smi, registers, floor, main_paths=True):
+    """Phases 11-15 (11-12 without ``main_paths``); returns the
+    K3/K4/reduction rows of the summary line. ``registers``: ptxas's count
+    per kernel of unrolled_sv.cu; ``floor``: the launch floor (ms)."""
     import torch
 
     from qcpinn_tpu_torch import bench, north_star as ns
@@ -907,21 +921,27 @@ def unrolled_phases(dev, gen, card_peaks, smi, registers, floor):
           "results": shape_errs})
     torch.cuda.empty_cache()
 
-    # -- 12. unrolled_kernels at the 8q main path's shapes, and K4's CTA ------
-    # route at the 10q main path's (north_star_plain)
-    per_kernel = {k: {} for k in (*SV_NAMES, "unrolled_bwd")}
-    for n_q, batches in ((SV_QUBITS, SV_BATCHES), (SV_CTA_QUBITS, SV_CTA_BATCHES)):
+    # -- 12. unrolled_kernels at the 8q main path's shapes (the warp routes),
+    # and at the 10q main path's (north_star_plain: the tile routes)
+    per_kernel = {k: {} for k in (*SV_NAMES, *SV_TILE_NAMES)}
+    for n_q, batches in ((SV_QUBITS, SV_BATCHES), (SV_TILE_QUBITS, SV_TILE_BATCHES)):
         circ = DVCircuit(n_q, 1, "cross_mesh", seed=42)
         blk = BlockFusedCircuit(circ)
         d = 1 << circ.n
         hl = (1 << blk.hb, 1 << blk.lb)
-        warp_route = n_q <= sk.WARP_MAX_QUBITS
+        warp_route = sk.route(n_q) == "warp"
+        fwd_name, bwd_name = ("unrolled_fwd_warp", "unrolled_bwd_warp") if warp_route else (
+            "unrolled_fwd_tile", "unrolled_bwd_tile")
         for b, mode in batches:
             mp, params, x, banks, states = sv_inputs(sk, circ, b, mode, gen, dev)
             errs, y, y_ref = check_sv(sk, mp, banks, states, f"{n_q}q_B{b}")
             xr, xi, gr, gi = states
             bank_bytes = 4 * sum(t.numel() for t in banks)
             f_ops, b_ops = step_work(lk, sk.steps(mp), mp.n, b)
+            k, p, u = banks[0].shape[1], banks[2].shape[0], banks[4].shape[0]
+            launch = (dict(zip(("warps_per_cta", "smem_per_cta", "grid", "ctas_per_sm"),
+                               sk.warp_config(dev, mp.n, k, p, u, b, bwd=False)))
+                      if warp_route else sk.tile_config(dev, mp, k, p, u, b, False).__dict__)
             with torch.no_grad():
                 ops = block_chain_ops(blk, params)
                 if mode == "apply":  # the library prepares the encoded state too
@@ -934,23 +954,30 @@ def unrolled_phases(dev, gen, card_peaks, smi, registers, floor):
                     def lib_fwd():
                         return run_chain(ops, xc)
 
-                if warp_route:
-                    fb, fby = bound(f_ops, 4 * 4 * b * d + bank_bytes, card_peaks)
-                    per_kernel["unrolled_fwd"][b] = {
-                        "mode": mode, "max_abs_err": errs["fwd_abs"], "tol": SV_FWD_TOL,
-                        **timed(lambda: sk.unrolled_fwd(xr, xi, *banks, mp)),
-                        "plain_ms": time_ms(
-                            lambda: sk.unrolled_fwd_ref(xr, xi, *banks, mp), reps=5),
-                        **timed(lib_fwd, reps=10, prefix="library_"),
-                        "library": "the block engine's complex einsum chain, matrices "
-                                   "and phases built once (cuBLAS, TF32 off)"
-                                   + ("; with the product-state encoding"
-                                      if mode == "apply" else ""),
-                        "bound_ms": fb, "bound_by": fby,
-                    }
-            route = (sk.unrolled_bwd_warp_partials if warp_route
-                     else sk.unrolled_bwd_cta_partials)
-            gxr, gxi, gmre, gmim, partials = route(*y, gr, gi, *banks, mp)
+                fb, fby = bound(f_ops, 4 * 4 * b * d + bank_bytes, card_peaks)
+                kern = timed(lambda: sk.unrolled_fwd(xr, xi, *banks, mp))
+                per_kernel[fwd_name][b] = {
+                    "n_qubits": n_q, "mode": mode, "max_abs_err": errs["fwd_abs"],
+                    "tol": SV_FWD_TOL, **kern,
+                    "plain_ms": time_ms(
+                        lambda: sk.unrolled_fwd_ref(xr, xi, *banks, mp), reps=5),
+                    **timed(lib_fwd, reps=10, prefix="library_", graph="graph_ms" in kern),
+                    "library": "the block engine's complex einsum chain, matrices "
+                               "and phases built once (cuBLAS, TF32 off)"
+                               + ("; with the product-state encoding"
+                                  if mode == "apply" else ""),
+                    "bound_ms": fb, "bound_by": fby, **launch,
+                    "segments": len(sk.segments(mp)), "steps": len(mp.steps),
+                    "registers": registers.get(
+                        f"unrolled_fwd_warp_kernel_rb{max(mp.n - 5, 0)}" if warp_route
+                        else "unrolled_fwd_tile_kernel" + ("" if launch["rows"] else "_ldg")),
+                }
+                if warp_route:  # the tile route on the same inputs
+                    per_kernel[fwd_name][b].update(timed(
+                        lambda: sk.unrolled_fwd_tile(xr, xi, *banks, mp), prefix="tile_route_",
+                        graph="graph_ms" in kern))
+            bwd = sk.unrolled_bwd_partials
+            gxr, gxi, gmre, gmim, partials = bwd(*y, gr, gi, *banks, mp)
             out_bytes = 4 * (gmre.numel() + gmim.numel() + banks[2].numel()
                              + banks[3].numel())
             bb, bby = bound(b_ops, 4 * 6 * b * d + bank_bytes + out_bytes, card_peaks)
@@ -958,7 +985,7 @@ def unrolled_phases(dev, gen, card_peaks, smi, registers, floor):
             # is built once, outside the timed calls, as the kernel's forward
             # is outside K4's time
             gc = torch.complex(gr, gi).reshape(b, *hl)
-            kern = timed(lambda: route(*y, gr, gi, *banks, mp))
+            kern = timed(lambda: bwd(*y, gr, gi, *banks, mp))
             row = {
                 "n_qubits": n_q, "mode": mode, "max_abs_err": errs["bwd_abs"],
                 "max_rel_err": errs["bwd_rel"], "tol": f"{BWD_RTOL}*max|ref|", **kern,
@@ -968,28 +995,31 @@ def unrolled_phases(dev, gen, card_peaks, smi, registers, floor):
                                  gc, "graph_ms" in kern, reps=10),
                 "library": "autograd backward alone of that einsum chain (no encoding)",
                 "bound_ms": bb, "bound_by": bby, "grid": partials.shape[0],
+                "segments": len(sk.segments(mp)), "steps": len(mp.steps),
             }
             if warp_route:
-                warps, smem, _, blocks = sk.warp_config(
-                    dev, mp.n, banks[0].shape[1], banks[2].shape[0], banks[4].shape[0], b)
+                warps, smem, _, blocks = sk.warp_config(dev, mp.n, k, p, u, b)
                 row.update({
                     "warps_per_cta": warps, "smem_per_cta": smem, "ctas_per_sm": blocks,
                     "registers": registers.get(f"unrolled_bwd_warp_kernel_rb{mp.n - 5}"),
-                    # the CTA route on the same inputs, the kernel this route
-                    # replaced at n <= 9
+                    # the tile route on the same inputs
                     **timed(lambda: sk.unrolled_bwd_cta_partials(*y, gr, gi, *banks, mp),
-                            prefix="cta_route_", graph="graph_ms" in kern),
+                            prefix="tile_route_", graph="graph_ms" in kern),
                 })
-                per_kernel["unrolled_bwd_warp"][b] = row
-                per_kernel["unrolled_reduce"][b] = reduce_row(
-                    sk.unrolled_reduce, sk.unrolled_reduce_ref, partials, card_peaks, floor)
             else:
-                row["registers"] = registers.get("unrolled_bwd_kernel")
-                per_kernel["unrolled_bwd"][b] = row
+                cfg = sk.tile_config(dev, mp, k, p, u, b, True)
+                row.update({**cfg.__dict__, "registers": registers.get(
+                    "unrolled_bwd_tile_kernel" + {3: "", 2: "_ldg", 0: "_global"}[cfg.variant])})
+            per_kernel[bwd_name][b] = row
+            per_kernel["unrolled_reduce"][b] = reduce_row(
+                sk.unrolled_reduce, sk.unrolled_reduce_ref, partials, card_peaks, floor)
             del ops, y, y_ref, gxr, gxi, gmre, gmim, partials, gc, states
             torch.cuda.empty_cache()
-    emit({"phase": "unrolled_kernels", "n_qubits": SV_QUBITS, "cta_route_qubits": SV_CTA_QUBITS,
-          "card": smi, "results": per_kernel})
+    emit({"phase": "unrolled_kernels", "n_qubits": SV_QUBITS,
+          "tile_route_qubits": SV_TILE_QUBITS, "card": smi, "results": per_kernel})
+
+    if not main_paths:
+        return []
 
     # -- 13. step_parity_8q: unrolled vs the plain block engine ----------------
     emit({"phase": "step_parity_8q", **step_parity(bench, SV_QUBITS, "unrolled")})
@@ -999,8 +1029,9 @@ def unrolled_phases(dev, gen, card_peaks, smi, registers, floor):
     if not isinstance(trainer.model._fused, sk.FusedCircuit):
         raise SystemExit(f"auto picked {type(trainer.model._fused).__name__} at 8q")
     launches, row = run_train(trainer, sk, SV_NAMES)
-    if launches["unrolled_bwd"] != 0:
-        raise SystemExit(f"train_8q: K4's CTA route ran {launches['unrolled_bwd']} times")
+    for k in ("unrolled_fwd_tile", "unrolled_bwd_tile"):
+        if launches[k] != 0:
+            raise SystemExit(f"train_8q: the tile route {k} ran {launches[k]} times")
     emit({"phase": "train_8q", **row, "card": smi,
           "profile": bench.profile(trainer, row["ms_per_step"], steps=3, top=8)})
     del trainer
@@ -1023,8 +1054,8 @@ def unrolled_phases(dev, gen, card_peaks, smi, registers, floor):
         raise SystemExit(f"north_star_plain: {result}")
     eval_chunks = -(-20**3 // min(512, 8 * args.batch))
     seen = min(result["steps"], WARMUP_STEPS + 1)  # warm-ups and the capture
-    want = {"unrolled_fwd": 2 * seen + 2 * eval_chunks, "unrolled_bwd": 2 * seen,
-            "unrolled_reduce": 2 * seen, "unrolled_bwd_warp": 0}
+    want = {"unrolled_fwd_tile": 2 * seen + 2 * eval_chunks, "unrolled_bwd_tile": 2 * seen,
+            "unrolled_reduce": 2 * seen, "unrolled_fwd_warp": 0, "unrolled_bwd_warp": 0}
     for k, v in want.items():
         if ns_launches[k] != v:
             raise SystemExit(f"north_star_plain: {k} launched {ns_launches[k]}, want {v}")
@@ -1033,27 +1064,26 @@ def unrolled_phases(dev, gen, card_peaks, smi, registers, floor):
     emit({"phase": "north_star_plain", "result": result, "wall_s": wall,
           "launches": ns_launches, "card": smi})
 
-    sources = {
-        "unrolled_fwd": "qcpinn_tpu/ops/pallas_sv.py:284",
-        "unrolled_bwd_warp": "qcpinn_tpu/ops/pallas_sv.py:317",
-        "unrolled_bwd": "qcpinn_tpu/ops/pallas_sv.py:317",
-        "unrolled_reduce": "qcpinn_tpu/ops/pallas_sv.py:332",
-    }
+    sources = {"unrolled_fwd_warp": "qcpinn_tpu/ops/pallas_sv.py:284",
+               "unrolled_fwd_tile": "qcpinn_tpu/ops/pallas_sv.py:284",
+               "unrolled_bwd_warp": "qcpinn_tpu/ops/pallas_sv.py:317",
+               "unrolled_bwd_tile": "qcpinn_tpu/ops/pallas_sv.py:317",
+               "unrolled_reduce": "qcpinn_tpu/ops/pallas_sv.py:332"}
     rows = []
     for k, by_b in per_kernel.items():
-        # K4's CTA route: its launches and shapes on north_star_plain (10q)
-        cta = k == "unrolled_bwd"
-        main_b = (SV_CTA_BATCHES if cta else SV_BATCHES)[0][0]
+        # the tile routes: their launches and shapes on north_star_plain (10q)
+        tile = k.endswith("_tile")
+        main_b = (SV_TILE_BATCHES if tile else SV_BATCHES)[0][0]
         r = by_b[main_b]
         rows.append({
             "name": k, "route": "cuda",
             "source": "qcpinn_tpu_torch/ops/csrc/unrolled_sv.cu",
-            "replaces": sources[k], "launches": (ns_launches if cta else launches)[k],
+            "replaces": sources[k], "launches": (ns_launches if tile else launches)[k],
             "max_abs_err": max(v["max_abs_err"] for v in by_b.values()),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             **{key: r[key] for key in GRAPH_KEYS if key in r},
-            "batch": main_b, "n_qubits": SV_CTA_QUBITS if cta else SV_QUBITS,
+            "batch": main_b, "n_qubits": SV_TILE_QUBITS if tile else SV_QUBITS,
             "by_batch": {str(bb): v for bb, v in by_b.items()},
         })
     return rows
@@ -1380,15 +1410,58 @@ def loop_step_costs():
           "launch": lk.launch_plan(dev, lp, b), "card": nvidia_smi_line()})
 
 
-def unrolled_step_costs():
-    """``--unrolled-step-costs``: K4's two routes (warp, CTA) at 8 qubits on
-    29-step tables of one step kind each (the 8q program's length): mats on
-    a lane bit and on a register bit of the warp route (controlled too),
-    diag, u2q on two lane bits, on a lane and a register bit and on two
-    register bits; then the 8q program itself and a one-step table (the
-    launch, loads and stores); graph ms at the 8q main path's two batches,
-    the warp route's ms a step over the one-step table; one JSON line."""
+def step_cost_programs(sk, n, steps, rows):
+    """MicroPrograms of ``n`` qubits, one per entry of ``rows`` (name: its
+    Step list), each with one Haar 4x4 and as many phase rows as its diags
+    name; returns (programs, the 4x4)."""
     import numpy as np
+
+    u = np.linalg.qr(np.random.default_rng(0).normal(size=(4, 4, 2)).view(np.complex128)[..., 0])[0]
+    programs = {name: sk.MicroProgram(
+        n, tuple(r), sum(st.kind in ("1q", "c1q") for st in r),
+        max([st.phase + 1 for st in r if st.kind == "diag"], default=1),
+        (u.astype(np.complex64),)) for name, r in rows.items()}
+    return programs, u
+
+
+def step_cost_rows(sk, programs, u, eng, b, gen, dev, routes):
+    """Graph ms of each program's launches at batch ``b`` on random inputs:
+    ``routes`` maps a column name to a function (mp, states, banks) -> one
+    launch."""
+    import torch
+
+    n = eng.circuit.n
+    x = torch.randn(4, b, 1 << n, generator=gen, device=dev)
+    states = tuple(x[i].contiguous() for i in range(4))
+    u4 = torch.view_as_real(torch.tensor(u, dtype=torch.complex64)).reshape(1, 32).to(dev)
+    rows = {}
+    for name, mp in programs.items():
+        k, p = max(mp.num_mats, 1), max(mp.num_phases, 1)
+        m = torch.linalg.qr(torch.randn(b, k, 2, 2, dtype=torch.complex64, device=dev))[0]
+        phi = torch.rand(p, 1 << n, generator=gen, device=dev)
+        banks = (m.real.contiguous(), m.imag.contiguous(), torch.cos(phi), torch.sin(phi),
+                 eng.constants(dev).u4 if name.startswith("program") else u4)
+        rows[name] = {"steps": len(mp.steps), "segments": len(sk.segments(mp)),
+                      **{col: graph_ms(lambda: fn(mp, states, banks))
+                         for col, fn in routes.items()}}
+    return rows
+
+
+def unrolled_step_costs():
+    """``--unrolled-step-costs``: the warp routes (K4, K3) at 8 qubits and
+    the tile routes (K4, K3) at 10 qubits, per step kind and per segment,
+    on 29-step tables of one step kind each. At 8q (both main batches):
+    mats on a lane bit and on a register bit (controlled too), diag, u2q on
+    two lane bits, on a lane and a register bit and on two register bits,
+    then the 8q program and a one-step table (the launch, loads and
+    stores); the warp route's ms a step over the one-step table. At 10q,
+    B = 425 (north_star_plain's value batch): mats on three bits (one
+    segment), mats cycling over all ten bits (a segment every three steps),
+    controlled mats, diags, u2qs on three bits (one segment), u2qs on
+    disjoint pairs (a segment each), the 10q program and a one-step table;
+    the tile route's ms a step (the one-segment tables over the one-step
+    table) and ms a segment (the ten-bit mats over the three-bit mats, per
+    extra segment). One JSON line."""
     import torch
 
     if not torch.cuda.is_available():
@@ -1397,10 +1470,13 @@ def unrolled_step_costs():
     from qcpinn_tpu_torch.ops import sv_kernel as sk
     from qcpinn_tpu_torch.ops.circuit import DVCircuit
 
-    n, steps = SV_QUBITS, 29
-    S = sk.Step
-    # wire w is bit n-1-w: wires 0-4 are the warp route's lane bits at 8q
-    kinds = {
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    steps, S = 29, sk.Step
+
+    # -- 8q: the warp routes; wire w is bit n-1-w, wires 0-4 the lane bits
+    n = SV_QUBITS
+    programs, u = step_cost_programs(sk, n, steps, {
         "mat_lane": [S("1q", wire=g % 5, mat=g) for g in range(steps)],
         "mat_reg": [S("1q", wire=5 + g % 3, mat=g) for g in range(steps)],
         "mat_lane_ctrl": [S("c1q", ctrl=5 + g % 3, wire=g % 5, mat=g) for g in range(steps)],
@@ -1410,47 +1486,82 @@ def unrolled_step_costs():
         "u2q_regs": [S("u2q", ctrl=5 + g % 3, wire=5 + (g + 1) % 3, u4=0)
                      for g in range(steps)],
         "one_step": [S("diag", phase=0)],
-    }
-    u = np.linalg.qr(np.random.default_rng(0).normal(size=(4, 4, 2)).view(np.complex128)[..., 0])[0]
-    programs = {name: sk.MicroProgram(
-        n, tuple(rows), sum(st.kind in ("1q", "c1q") for st in rows),
-        2 if name == "diag" else 1, (u.astype(np.complex64),)) for name, rows in kinds.items()}
-    dev = torch.device("cuda")
+    })
     eng = sk.FusedCircuit(DVCircuit(n, 1, "cross_mesh", seed=42))
     programs["program_8q"] = eng.mp_evolve
-    gen = torch.Generator(device=dev).manual_seed(5)
-    u4 = torch.view_as_real(torch.tensor(u, dtype=torch.complex64)).reshape(1, 32).to(dev)
+    warp = {
+        "warp_graph_ms": lambda mp, st, bk: sk.unrolled_bwd_warp_partials(*st, *bk, mp),
+        "warp_fwd_graph_ms": lambda mp, st, bk: sk.unrolled_fwd_warp(*st[:2], *bk, mp),
+    }
     out = {}
     for b, _ in SV_BATCHES:
-        x = torch.randn(4, b, 1 << n, generator=gen, device=dev)
-        yr, yi, gr, gi = (x[i].contiguous() for i in range(4))
-        rows = {}
-        for name, mp in programs.items():
-            k, p = max(mp.num_mats, 1), max(mp.num_phases, 1)
-            m = torch.linalg.qr(torch.randn(b, k, 2, 2, dtype=torch.complex64, device=dev))[0]
-            phi = torch.rand(p, 1 << n, generator=gen, device=dev)
-            banks = (m.real.contiguous(), m.imag.contiguous(), torch.cos(phi), torch.sin(phi),
-                     eng.constants(dev).u4 if name == "program_8q" else u4)
-            rows[name] = {
-                "steps": len(mp.steps),
-                "warp_graph_ms": graph_ms(
-                    lambda: sk.unrolled_bwd_warp_partials(yr, yi, gr, gi, *banks, mp)),
-                "cta_graph_ms": graph_ms(
-                    lambda: sk.unrolled_bwd_cta_partials(yr, yi, gr, gi, *banks, mp)),
-            }
-        fixed = rows["one_step"]["warp_graph_ms"]
-        for name, r in rows.items():
-            if r["steps"] > 1:
-                r["warp_ms_per_step"] = (r["warp_graph_ms"] - fixed) / (r["steps"] - 1)
+        rows = step_cost_rows(sk, programs, u, eng, b, gen, dev, warp)
+        for col in warp:
+            fixed = rows["one_step"][col]
+            for r in rows.values():
+                if r["steps"] > 1:
+                    r[col.replace("graph_ms", "ms_per_step")] = (
+                        (r[col] - fixed) / (r["steps"] - 1))
         out[str(b)] = rows
-        del x, yr, yi, gr, gi
     mp8 = programs["program_8q"]
     warps, smem, grid, ctas = sk.warp_config(dev, n, mp8.num_mats, mp8.num_phases,
                                              len(mp8.u4s), SV_BATCHES[0][0])
-    emit({"unrolled_step_costs": out, "n_qubits": n,
+
+    # -- 10q: the tile routes
+    n, b = SV_TILE_QUBITS, SV_TILE_BATCHES[1][0]
+    programs, u = step_cost_programs(sk, n, steps, {
+        "mat_3bits": [S("1q", wire=g % 3, mat=g) for g in range(steps)],
+        "mat_10bits": [S("1q", wire=g % 10, mat=g) for g in range(steps)],
+        "mat_ctrl_3bits": [S("c1q", ctrl=5 + g % 5, wire=g % 3, mat=g) for g in range(steps)],
+        "diag": [S("diag", phase=g % 2) for g in range(steps)],
+        "u2q_3bits": [S("u2q", ctrl=g % 3, wire=(g + 1) % 3, u4=0) for g in range(steps)],
+        "u2q_pairs": [S("u2q", ctrl=(2 * g) % 10, wire=(2 * g + 1) % 10, u4=0)
+                      for g in range(steps)],
+        "one_step": [S("diag", phase=0)],
+    })
+    eng = sk.FusedCircuit(DVCircuit(n, 1, "cross_mesh", seed=42))
+    programs["program_10q"] = eng.mp_evolve
+    tile = {
+        "tile_graph_ms": lambda mp, st, bk: sk.unrolled_bwd_cta_partials(*st, *bk, mp),
+        "tile_fwd_graph_ms": lambda mp, st, bk: sk.unrolled_fwd_tile(*st[:2], *bk, mp),
+    }
+    rows = step_cost_rows(sk, programs, u, eng, b, gen, dev, tile)
+    for col in tile:
+        fixed = rows["one_step"][col]
+        for name in ("mat_3bits", "mat_ctrl_3bits", "diag", "u2q_3bits"):
+            rows[name][col.replace("graph_ms", "ms_per_step")] = (
+                (rows[name][col] - fixed) / (steps - 1))
+        extra = rows["mat_10bits"]["segments"] - rows["mat_3bits"]["segments"]
+        rows["mat_10bits"][col.replace("graph_ms", "ms_per_segment")] = (
+            (rows["mat_10bits"][col] - rows["mat_3bits"][col]) / extra)
+    mp10 = programs["program_10q"]
+    cfg = sk.tile_config(dev, mp10, mp10.num_mats, mp10.num_phases, len(mp10.u4s), b, True)
+    # the phase rows staged in shared memory, or read at each diag step
+    # (SMEM_MAX set just under the staged layout's size, so tile_config
+    # takes the __ldg variant), at the 10q main path's shapes
+    staging = {}
+    limit = sk.SMEM_MAX
+    circ = DVCircuit(n, 1, "cross_mesh", seed=42)
+    for bb, mode in SV_TILE_BATCHES:
+        mp, _, _, banks, (xr, xi, gr, gi) = sv_inputs(sk, circ, bb, mode, gen, dev)
+        y = sk.unrolled_fwd(xr, xi, *banks, mp)
+        k, p, u = banks[0].shape[1], banks[2].shape[0], banks[4].shape[0]
+        fwd = lambda: sk.unrolled_fwd_tile(xr, xi, *banks, mp)  # noqa: E731
+        bwd = lambda: sk.unrolled_bwd_cta_partials(*y, gr, gi, *banks, mp)  # noqa: E731
+        for tag, staged in (("rows_staged", True), ("rows_ldg", False)):
+            row = staging[f"{bb}_{tag}"] = {}
+            for key, is_bwd, fn in (("fwd_graph_ms", False, fwd), ("bwd_graph_ms", True, bwd)):
+                full = sk.tile_smem(n, k, p, u, len(sk.segments(mp)), len(mp.steps), is_bwd,
+                                    True, is_bwd)
+                sk.SMEM_MAX = full if staged else full - 4
+                row[key] = graph_ms(fn)
+            sk.SMEM_MAX = limit
+        del y, xr, xi, gr, gi
+    emit({"unrolled_step_costs": out, "n_qubits": SV_QUBITS,
           "warp_launch_at_8q_main": {"warps_per_cta": warps, "smem_per_cta": smem,
                                      "grid": grid, "ctas_per_sm": ctas},
-          "card": nvidia_smi_line()})
+          "tile_step_costs": {str(b): rows}, "tile_qubits": n, "tile_rows_staging": staging,
+          "tile_launch_at_10q_B425": cfg.__dict__, "card": nvidia_smi_line()})
 
 
 # (n, layers, hi_bits, B): the 12q pair's sizes and uneven splits (at B =
@@ -1863,6 +1974,105 @@ def rates(tree: str):
           "registers": registers, "card": nvidia_smi_line()})
 
 
+def unrolled_check():
+    """``--unrolled``: build unrolled_sv.cu, then the launch floor and the
+    unrolled_shapes and unrolled_kernels phases alone (the quick check
+    after a change to K3/K4)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import qcpinn_tpu_torch  # noqa: F401  (sets TF32 off)
+
+    dev = torch.device("cuda")
+    smi = nvidia_smi_line()
+    built = build_phase(["unrolled_sv"])
+    floor = launch_floor_phase()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    unrolled_phases(dev, gen, peaks(torch.cuda.get_device_name(0)), smi,
+                    ptxas_registers(built["unrolled_sv"][2]), floor, main_paths=False)
+    print(smi, flush=True)
+
+
+SV_RATE_STEPS = 1000  # north_star_plain's timed steps in --sv-rates
+
+
+def sv_rates(tree: str):
+    """``--sv-rates TREE``: with TREE's ``qcpinn_tpu_torch``, the numbers
+    that hold two trees' K3/K4 side by side: K3 and K4 (``unrolled_fwd``,
+    ``unrolled_bwd_partials``) by graph at the 8q and 10q main paths'
+    shapes, on inputs from a seed of their own; the sha256 of K4's outputs
+    (``unrolled_bwd``, fed the random unit-norm state as its final state,
+    so that no forward's rounding enters) at every SV_SHAPES shape of
+    n <= 9 and at the 8q main shapes, so that two trees' warp route can be
+    held bit-equal; the 8q bench step (graphed, 30 steps, then a 3-step
+    profile: device ms a step); and the ``north_star --solver plain`` step
+    at 10 qubits (its ``make_stage``, graphed: SV_RATE_STEPS timed steps,
+    then a 3-step profile). One JSON line. To compare two trees, run it
+    once per tree in one call, in turns (A, B, B, A)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+    sys.path.insert(0, os.path.abspath(tree))
+    import qcpinn_tpu_torch
+    from qcpinn_tpu_torch import bench, north_star as ns
+    from qcpinn_tpu_torch.ops import cuda_build
+    from qcpinn_tpu_torch.ops import sv_kernel as sk
+    from qcpinn_tpu_torch.ops.circuit import DVCircuit
+
+    cuda_build.build_all(["unrolled_sv"])
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    kernels = {}
+    for n_q, batches in ((SV_QUBITS, SV_BATCHES), (SV_TILE_QUBITS, SV_TILE_BATCHES)):
+        circ = DVCircuit(n_q, 1, "cross_mesh", seed=42)
+        for b, mode in batches:
+            mp, _, _, banks, (xr, xi, gr, gi) = sv_inputs(sk, circ, b, mode, gen, dev)
+            y = sk.unrolled_fwd(xr, xi, *banks, mp)
+            row = {"fwd_graph_ms": graph_ms(lambda: sk.unrolled_fwd(xr, xi, *banks, mp)),
+                   "bwd_graph_ms": graph_ms(
+                       lambda: sk.unrolled_bwd_partials(*y, gr, gi, *banks, mp))}
+            if n_q <= 9:
+                row["bwd_sha256"] = digest(sk.unrolled_bwd(xr, xi, gr, gi, *banks, mp))
+            kernels[f"{n_q}q_B{b}"] = row
+            del y, xr, xi, gr, gi
+            torch.cuda.empty_cache()
+    shapes = {}
+    for n, ansatz, layers, seed, enc, b in SV_SHAPES:
+        if n > 9:
+            continue
+        circ = DVCircuit(n, layers, ansatz, encoding=enc, seed=seed)
+        for mode in ("evolve",) if enc == "amplitude" else ("apply", "evolve"):
+            mp, _, _, banks, (xr, xi, gr, gi) = sv_inputs(sk, circ, b, mode, gen, dev)
+            shapes[f"{ansatz}_{enc}_n{n}_layers{layers}_B{b}_{mode}"] = digest(
+                sk.unrolled_bwd(xr, xi, gr, gi, *banks, mp))
+    trainer = bench.build(n_qubits=SV_QUBITS)
+    ms = 1e3 * bench.run(trainer, steps=10)
+    step8 = bench.profile(trainer, ms, steps=3, top=4)
+    del trainer
+    torch.cuda.empty_cache()
+    args = ns.parse_args(["--solver", "plain", "--qubits", "10", "--backend", "unrolled",
+                          "--total-steps", str(SV_RATE_STEPS + 29)])
+    cfg, model, use_streams, backend = ns.build_model(args, dev)
+    stage = ns.make_stage(model, cfg, args, ns.make_terms(args), "train", backend,
+                          use_streams)
+    stage.run(25)  # the warm-ups and the capture
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = stage.run(SV_RATE_STEPS)["loss"]
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / SV_RATE_STEPS
+    plain = bench.profile(type("Steps", (), {"step": lambda self: stage.run(1)})(), ms,
+                          steps=3, top=4)
+    emit({"tree": tree, "package": os.path.dirname(qcpinn_tpu_torch.__file__),
+          "kernels": kernels, "bwd_sha256_by_shape": shapes, "bench_8q": step8,
+          "north_star_plain": {**plain, "steps": SV_RATE_STEPS,
+                               "losses_finite": bool(torch.isfinite(losses).all())},
+          "card": nvidia_smi_line()})
+
+
 def cluster_phase(dev, gen, card_peaks, smi, registers, floor):
     """Phase ``cluster_kernels``; returns its results by (n, B). ``floor``:
     the launch floor (ms)."""
@@ -2077,6 +2287,10 @@ def main():
         return unrolled_step_costs()
     if sys.argv[1:] == ["--cluster-kernels"]:
         return cluster_kernels()
+    if sys.argv[1:] == ["--unrolled"]:
+        return unrolled_check()
+    if len(sys.argv) == 3 and sys.argv[1] == "--sv-rates":
+        return sv_rates(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--rates":
         return rates(sys.argv[2])
     if not torch.cuda.is_available():

@@ -30,7 +30,8 @@ class DVSolver(nn.Module):
         if (config.noise_depolarizing or config.noise_readout
                 or config.noise_per_gate):
             raise NotImplementedError(
-                "noise models are not yet ported (ROADMAP queue 1 item 9)")
+                "noise models are not yet ported "
+                "(ROADMAP queue 1, hardware-fidelity modes)")
         device = resolve_device(device)
         self.config = config
         self.n = config.num_qubits

@@ -29,8 +29,8 @@ not rounded.
 the angles, no Fourier map, skip or RBF head) in one stage, as the JAX
 script does: the tangent-stream residual at n >= 10, below that the
 forward-mode residual on the plain ``block`` engine.
-``--solver classical`` (Hopfield) is not yet ported (ROADMAP queue 1
-item 10).
+``--solver classical`` (Hopfield) is not yet ported (ROADMAP queue 1,
+``--solver classical``).
 """
 
 from __future__ import annotations
@@ -165,7 +165,8 @@ def build_model(args, device):
     solver = solver_name(args)
     if solver == "classical":
         raise NotImplementedError(
-            "--solver classical (Hopfield) is not yet ported (ROADMAP queue 1 item 10)")
+            "--solver classical (Hopfield) is not yet ported "
+            "(ROADMAP queue 1, --solver classical)")
     cfg = QCPINNConfig(
         num_qubits=args.qubits,
         num_quantum_layers=args.layers,

@@ -1,8 +1,8 @@
 // Shared by gate_loop.cu and unrolled_sv.cu, the two kernel families that
 // walk a gate table: the table itself, the amplitude-pair and quad
-// addressing, the 2x2 and 4x4 updates, the fixed-order block reduction,
-// the launch helpers, and the split of one sample over a
-// thread-block cluster with its fixed-order sum across ranks (gate_loop.cu).
+// addressing, the 2x2 update, the launch helpers, and the split of one
+// sample over a thread-block cluster with its fixed-order sum across ranks
+// (gate_loop.cu).
 //
 // A sample's state is a row of 2^n split re/im f32 amplitudes, wire 0 the
 // most significant bit; the partner of amplitude i across bit g is
@@ -16,7 +16,6 @@
 
 #define GT_MAX_STEPS 768
 #define GT_MAX_THREADS 512
-#define GT_MAX_WARPS (GT_MAX_THREADS / 32)
 #define GT_MAX_DEVICES 64
 
 // One 32-bit word per step: kind[0:2] | ga[2:7] | gb[7:12] | ctrl[12] |
@@ -56,33 +55,6 @@ __device__ __forceinline__ void quad_index(int q, int ga, int gb, int idx[4]) {
     idx[1] = i | B;
     idx[2] = i | A;
     idx[3] = i | A | B;
-}
-
-// v[r] <- sum_c U[r][c] v[c] (or conj(U[c][r]) when CT) on one quad; u is
-// a [32] bank row, the 16 complex entries row-major.
-template <bool CT>
-__device__ __forceinline__ void apply4(float* sr, float* si, const int idx[4],
-                                       const float* u) {
-    float ar[4], ai[4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-        ar[c] = sr[idx[c]];
-        ai[c] = si[idx[c]];
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-        float accr = 0.f, acci = 0.f;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-            const int e = CT ? (c * 4 + r) * 2 : (r * 4 + c) * 2;
-            const float ur = u[e];
-            const float ui = CT ? -u[e + 1] : u[e + 1];
-            accr = fmaf(ur, ar[c], fmaf(-ui, ai[c], accr));
-            acci = fmaf(ur, ai[c], fmaf(ui, ar[c], acci));
-        }
-        sr[idx[r]] = accr;
-        si[idx[r]] = acci;
-    }
 }
 
 // -- the cluster partition of one sample (gate_loop.cu) -----------------------
@@ -192,32 +164,6 @@ __device__ __forceinline__ void cmadd2(float ar, float ai, float xr, float xi,
                                        float& yr, float& yi) {
     yr = fmaf(ar, xr, fmaf(-ai, xi, fmaf(br, zr, -bi * zi)));
     yi = fmaf(ar, xi, fmaf(ai, xr, fmaf(br, zi, bi * zr)));
-}
-
-// Sum v[8] over the block in a fixed order; the result lands in thread 0.
-// blockDim.x is a multiple of 32, at most GT_MAX_THREADS; red holds
-// GT_MAX_WARPS * 8 floats of shared memory.
-__device__ __forceinline__ void block_sum8(float v[8], float* red) {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int n_warps = blockDim.x >> 5;
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-            v[e] += __shfl_down_sync(0xffffffffu, v[e], off);
-    if (lane == 0)
-#pragma unroll
-        for (int e = 0; e < 8; ++e) red[warp * 8 + e] = v[e];
-    __syncthreads();
-    if (warp == 0) {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-            v[e] = lane < n_warps ? red[lane * 8 + e] : 0.f;
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1)
-                v[e] += __shfl_down_sync(0xffffffffu, v[e], off);
-        }
-    }
 }
 
 static int fill_table(GtTable* tab, const unsigned int* steps, int n_steps) {

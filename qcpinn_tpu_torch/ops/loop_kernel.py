@@ -776,7 +776,7 @@ class LoopFusedCircuit:
 
     def apply(self, params, x):
         """``[B, F] -> [B, n]`` exact ``<Z_w>`` (shots and noise are not yet
-        ported, ROADMAP queue 1 item 9)."""
+        ported: ROADMAP queue 1, hardware-fidelity modes)."""
         return measure.exact_z(self.state(params, x), self.circuit.n)
 
     def __call__(self, params, x):

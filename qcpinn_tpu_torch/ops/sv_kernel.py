@@ -7,23 +7,25 @@ steps ``1q`` (a per-sample 2x2 from the ``[B, K, 2, 2]`` matrix bank),
 the phase row ``(cos + i sin)[p]``) and ``u2q`` (a fixed 4x4 on two
 wires). With the encoding, the bank's first ``n`` matrices are the
 per-sample RX gates and the state starts at ``|0...0>``.
-``csrc/unrolled_sv.cu`` holds two hand-written CUDA kernels for Hopper
-(sm_90a) and a reduction pass:
+``csrc/unrolled_sv.cu`` holds hand-written CUDA kernels for Hopper (sm_90a)
+and a reduction pass:
 
-- ``unrolled_fwd`` replaces ``pallas_sv.py::_forward_kernel``: one CTA per
-  sample keeps its ``2^n`` split re/im amplitudes in shared memory for the
-  whole program; the partner across wire w is ``i ^ (1 << (n-1-w))``.
-- ``unrolled_bwd`` replaces ``pallas_sv.py::_backward_kernel``: the reverse
-  sweep with inverse gates, O(1) extra state. It writes the per-sample
-  matrix cotangent ``[B, K, 2, 2]`` and the input cotangent; the
+- ``unrolled_fwd`` replaces ``pallas_sv.py::_forward_kernel`` (K3);
+- ``unrolled_bwd`` replaces ``pallas_sv.py::_backward_kernel`` (K4): the
+  reverse sweep with inverse gates, O(1) extra state. It writes the
+  per-sample matrix cotangent ``[B, K, 2, 2]`` and the input cotangent; the
   ``[P, 2^n]`` phase cotangents are batch sums, written into one slab per
-  CTA of a persistent grid, and ``unrolled_reduce`` adds the slabs in a
-  fixed order (no float atomics, deterministic). Two routes, picked by n
-  (:func:`unrolled_bwd_partials`): at n <= 9 ``unrolled_bwd_warp`` holds a
-  sample in one warp's registers (no barrier in the sweep; the phase
-  cotangents stay in registers over the warp's samples); at 10 <= n <= 12
-  ``unrolled_bwd_cta`` holds it in a CTA's shared memory, one thread per
-  amplitude pair and a barrier a step.
+  CTA of a persistent grid, and ``unrolled_reduce`` (K4b) adds the slabs in
+  a fixed order (no float atomics, deterministic).
+
+Each direction has two routes, picked by n (:func:`route`): at n <= 9 the
+warp route (``unrolled_fwd_warp``, ``unrolled_bwd_warp``) holds a sample in
+one warp's registers, no barrier in the sweep; at 10 <= n <= 12 the tile
+route (``unrolled_fwd_tile``, ``unrolled_bwd_tile``) holds it in a CTA's
+shared memory and walks the program's segments (:func:`segments`: runs of
+steps whose target bits fit in ``TILE_BITS`` bits), each thread a tile of
+``2^TILE_BITS`` amplitudes in registers and one barrier a segment
+(:func:`tile_layout` says which amplitudes a thread takes).
 
 The program reaches the kernels as a step table passed by value in the
 kernel parameters, so nothing is compiled per circuit: Mosaic's per-circuit
@@ -61,14 +63,18 @@ from .diag_fusion import DiagRun
 MAX_QUBITS = 12  # one sample and its cotangent fit in a CTA's shared memory
 MAX_STEPS = lk.MAX_STEPS  # GT_MAX_STEPS in csrc/gate_table.cuh
 MAX_BANK = lk.MAX_BANK  # the step word keeps a 16-bit bank index
-MAX_THREADS = 512  # GT_MAX_THREADS
 WARP_MAX_QUBITS = 9  # UW_MAX_QUBITS: the warp route's sample fits in registers
 WARPS = 8  # UW_MAX_WARPS, warps a CTA of the warp route
+TILE_BITS = 3  # US_TILE_BITS: a tile-route thread's tile is 2^3 amplitudes
+SEG_END = 1 << 13  # US_SEG_END: the step word's segment-end flag
+BANK_BITS = 5  # a warp's 32 lanes, the shared-memory banks
+TILE_MIN_QUBITS = TILE_BITS + BANK_BITS  # a CTA of the tile route: 32 threads at least
 
 LAUNCHES = {
-    "unrolled_fwd": 0,
-    "unrolled_bwd": 0,
+    "unrolled_fwd_warp": 0,
+    "unrolled_fwd_tile": 0,
     "unrolled_bwd_warp": 0,
+    "unrolled_bwd_tile": 0,
     "unrolled_reduce": 0,
     "unrolled_fwd_ref": 0,
     "unrolled_bwd_ref": 0,
@@ -174,10 +180,87 @@ def steps(mp: MicroProgram) -> Tuple[lk.Step, ...]:
     return tuple(out)
 
 
+def targets(st: lk.Step) -> Tuple[int, ...]:
+    """The bits a step mixes amplitudes across: a mat's target (its control
+    bit only selects), a u2q's two bits, none for a diag."""
+    if st.kind == lk.K_MAT:
+        return (st.ga,)
+    if st.kind == lk.K_U2Q:
+        return (st.ga, st.gb)
+    return ()
+
+
+@functools.lru_cache(maxsize=64)
+def segments(mp: MicroProgram, k: int = TILE_BITS) -> Tuple[Tuple[int, int, int], ...]:
+    """The segment plan: maximal runs ``[first, end)`` of consecutive steps
+    whose target bits (:func:`targets`) fit in at most ``k`` distinct bits,
+    in program order, each with the mask of those bits. A diag has none,
+    so it never ends a segment. The backward walks the same plan in
+    reverse."""
+    out: List[Tuple[int, int, int]] = []
+    first, mask = 0, 0
+    for i, st in enumerate(steps(mp)):
+        m = sum(1 << g for g in set(targets(st)))
+        if bin(mask | m).count("1") > k:
+            out.append((first, i, mask))
+            first, mask = i, 0
+        mask |= m
+    if len(mp.steps) > first:
+        out.append((first, len(mp.steps), mask))
+    return tuple(out)
+
+
 @functools.lru_cache(maxsize=64)
 def step_words(mp: MicroProgram) -> np.ndarray:
-    """The CUDA table (``lk.pack_steps``), cached per program."""
-    return lk.pack_steps(steps(mp))
+    """The CUDA table (``lk.pack_steps``) with each segment's last step
+    flagged by SEG_END (bit 13, which ``gate_table.cuh`` never decodes, so
+    the warp route ignores it), cached per program."""
+    words = lk.pack_steps(steps(mp)).copy()
+    for _, end, _ in segments(mp):
+        words[end - 1] |= SEG_END
+    words.flags.writeable = False
+    return words
+
+
+def tile_layout(n: int, mask: int, k: int = TILE_BITS) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """Which amplitudes a tile-route thread takes in a segment whose target
+    bits are ``mask`` (``us_layout`` in csrc/unrolled_sv.cu, the same
+    rule): (the tile's k bits, ascending: ``mask`` padded with the highest
+    other bits; the other bits in the order thread t's bits are deposited
+    on them, lanes first). Amplitude i lives at :func:`phys` (i) in shared
+    memory, where a lane bit p falls on bank bit p (p < 5), p - 5 (p < 10)
+    or all five (p = 10, 11); so the lanes take, for each bank bit r, bit r
+    or else bit r + 5, and bit 10 or 11 where both are tile bits: each of a
+    warp's tile loads then hits 32 banks."""
+    for g in range(n - 1, -1, -1):
+        if bin(mask).count("1") >= k:
+            break
+        mask |= 1 << g
+    tile = tuple(g for g in range(n) if mask >> g & 1)
+    used, order, missing = set(tile), [], 0
+    for r in range(BANK_BITS):
+        pick = next((g for g in (r, r + BANK_BITS) if g < n and g not in used), None)
+        if pick is None:
+            missing += 1
+        else:
+            used.add(pick)
+            order.append(pick)
+    for _ in range(missing):
+        free = [g for g in (10, 11) if g < n and g not in used]
+        free = free or [g for g in range(n) if g not in used]
+        if not free:
+            break
+        used.add(free[0])
+        order.append(free[0])
+    order += [g for g in range(n) if g not in used]
+    return tile, tuple(order)
+
+
+def phys(i):
+    """Where amplitude i lives in the tile route's shared memory
+    (``us_phys``): bits 0-4 xor bits 5-9, and xor 31 for each of bits 10
+    and 11; works on ints and integer tensors."""
+    return i ^ (((i >> 5) & 31) ^ ((((i >> 10) ^ (i >> 11)) & 1) * 31))
 
 
 # -- the kernels' inputs, from the circuit parameters and the encoding inputs ----
@@ -327,6 +410,7 @@ def unrolled_reduce_ref(partials: torch.Tensor) -> torch.Tensor:
 # -- the CUDA library ----------------------------------------------------------
 
 _LIB: Optional[ctypes.CDLL] = None
+WARP_ROUTE, TILE_ROUTE = 0, 1  # the C entries' route codes
 
 
 def _lib() -> ctypes.CDLL:
@@ -334,13 +418,10 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(cuda_build.build("unrolled_sv")[0])
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.qc_unrolled_fwd.argtypes = [p] * 9 + [i] * 4 + [p, i, p]
-        lib.qc_unrolled_bwd.argtypes = [p] * 14 + [i] * 5 + [p, i, i, p]
-        lib.qc_unrolled_bwd_warp.argtypes = [p] * 14 + [i] * 6 + [p, i, i, p]
-        lib.qc_unrolled_bwd_warp_occupancy.argtypes = [i, i, i, ctypes.POINTER(i)]
+        lib.qc_unrolled_launch.argtypes = [i] * 3 + [p] * 14 + [i] * 6 + [p, i, i, i, i, p]
+        lib.qc_unrolled_occupancy.argtypes = [i] * 6 + [ctypes.POINTER(i)]
         lib.qc_unrolled_reduce.argtypes = [p, p, i, i, p]
-        for fn in (lib.qc_unrolled_fwd, lib.qc_unrolled_bwd, lib.qc_unrolled_bwd_warp,
-                   lib.qc_unrolled_bwd_warp_occupancy, lib.qc_unrolled_reduce):
+        for fn in (lib.qc_unrolled_launch, lib.qc_unrolled_occupancy, lib.qc_unrolled_reduce):
             fn.restype = i
         lib.qc_unrolled_error_string.argtypes = [i]
         lib.qc_unrolled_error_string.restype = ctypes.c_char_p
@@ -354,9 +435,12 @@ def _raise_on(lib, err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
 
 
-def threads(n: int) -> int:
-    """CTA size: one thread per amplitude pair, one warp at least."""
-    return min(MAX_THREADS, max(32, 1 << (n - 1)))
+def route(n: int) -> str:
+    """The route both directions take at n qubits: ``warp`` (one warp a
+    sample in registers) at n <= WARP_MAX_QUBITS, ``tile`` (one CTA a
+    sample in shared memory, a tile of the segment's bits a thread)
+    above."""
+    return "warp" if n <= WARP_MAX_QUBITS else "tile"
 
 
 def check_program(mp: MicroProgram) -> None:
@@ -403,34 +487,64 @@ def _on_cpu(t: torch.Tensor) -> bool:
     return False
 
 
+def _launch(name: str, route_code: int, bwd: bool, variant: int, mp: MicroProgram,
+            tensors, b: int, k: int, p: int, u: int, grid: int, threads: int,
+            smem: int) -> None:
+    """One kernel launch through ``qc_unrolled_launch``: ``tensors`` are the
+    14 pointers' tensors (None for an unused one) in the entry's order."""
+    lib = _lib()
+    words = step_words(mp)
+    err = lib.qc_unrolled_launch(
+        route_code, int(bwd), variant, *[t.data_ptr() if t is not None else None
+                                         for t in tensors],
+        b, mp.n, k, p, u, len(segments(mp)), words.ctypes.data, len(words), grid,
+        threads, smem, torch.cuda.current_stream(tensors[0].device).cuda_stream,
+    )
+    _raise_on(lib, err, name)
+    LAUNCHES[name] += 1
+
+
 def unrolled_fwd(xr, xi, mre, mim, cos, sin, u4, mp: MicroProgram):
-    """Forward kernel wrapper; same contract as :func:`unrolled_fwd_ref`."""
+    """Forward kernel wrapper; same contract as :func:`unrolled_fwd_ref`.
+    The route by n (:func:`route`)."""
     if _on_cpu(xr):
         return unrolled_fwd_ref(xr, xi, mre, mim, cos, sin, u4, mp)
+    fwd = unrolled_fwd_warp if route(mp.n) == "warp" else unrolled_fwd_tile
+    return fwd(xr, xi, mre, mim, cos, sin, u4, mp)
+
+
+def unrolled_fwd_warp(xr, xi, mre, mim, cos, sin, u4, mp: MicroProgram):
+    """The warp route of :func:`unrolled_fwd` (CUDA tensors, 1 <= n <= 9):
+    one warp a sample, its state in registers."""
+    _check_cuda(mp, (xr, xi), mre, mim, cos, sin, u4)
+    if mp.n > WARP_MAX_QUBITS:
+        raise ValueError(f"unrolled_fwd_warp takes n <= {WARP_MAX_QUBITS}; got n = {mp.n}")
+    yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+    b = xr.shape[0]
+    if b == 0:
+        return yr, yi
+    k, p, u = mre.shape[1], cos.shape[0], u4.shape[0]
+    warps, smem, g, _ = warp_config(xr.device, mp.n, k, p, u, b, bwd=False)
+    _launch("unrolled_fwd_warp", WARP_ROUTE, False, 0, mp,
+            (xr, xi, None, None, mre, mim, cos, sin, u4, yr, yi, None, None, None),
+            b, k, p, u, g, 32 * warps, smem)
+    return yr, yi
+
+
+def unrolled_fwd_tile(xr, xi, mre, mim, cos, sin, u4, mp: MicroProgram):
+    """The tile route of :func:`unrolled_fwd` (CUDA tensors, TILE_MIN_QUBITS
+    <= n <= 12): one CTA a sample in shared memory, a tile a thread."""
     _check_cuda(mp, (xr, xi), mre, mim, cos, sin, u4)
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
     b = xr.shape[0]
     if b == 0:
         return yr, yi
-    lib = _lib()
-    words = step_words(mp)
-    err = lib.qc_unrolled_fwd(
-        xr.data_ptr(), xi.data_ptr(), mre.data_ptr(), mim.data_ptr(),
-        cos.data_ptr(), sin.data_ptr(), u4.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-        b, mp.n, mre.shape[1], threads(mp.n), words.ctypes.data, len(words),
-        torch.cuda.current_stream(xr.device).cuda_stream,
-    )
-    _raise_on(lib, err, "unrolled_fwd")
-    LAUNCHES["unrolled_fwd"] += 1
+    k, p, u = mre.shape[1], cos.shape[0], u4.shape[0]
+    cfg = tile_config(xr.device, mp, k, p, u, b, bwd=False)
+    _launch("unrolled_fwd_tile", TILE_ROUTE, False, cfg.variant, mp,
+            (xr, xi, None, None, mre, mim, cos, sin, u4, yr, yi, None, None, None),
+            b, k, p, u, cfg.grid, cfg.threads, cfg.smem)
     return yr, yi
-
-
-def grid_size(device: torch.device, b: int, n: int) -> int:
-    """The CTA route's persistent grid: up to 2048 threads' worth of CTAs an SM
-    (at most 8), never more than the batch."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    per_sm = max(1, min(8, 2048 // threads(n)))
-    return max(1, min(b, per_sm * sms))
 
 
 def unrolled_reduce(partials: torch.Tensor) -> torch.Tensor:
@@ -451,62 +565,133 @@ def unrolled_reduce(partials: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def warp_smem(n: int, k: int, p: int, u: int) -> Tuple[int, int]:
-    """Shared-memory bytes of the warp route: (a warp's, the CTA's own).
-    A warp holds the sample's ``[2, K, 2, 2]`` matrix cotangents and
-    matrices and its ``[2, P, 2^n]`` phase cotangents; the CTA one copy of
-    the ``[2, P, 2^n]`` phase rows and the ``[U, 32]`` 4x4s."""
-    pd = p * (1 << n)
-    return 4 * (16 * k + 2 * pd), 4 * (2 * pd + 32 * u)
-
-
-@functools.lru_cache(maxsize=64)
-def _warp_blocks(device_index: int, n: int, warps: int, smem: int) -> int:
-    """CTAs of the warp route one SM holds at once (the occupancy query)."""
+@functools.lru_cache(maxsize=128)
+def _blocks(device_index: int, route_code: int, bwd: bool, variant: int, n: int,
+            threads: int, smem: int) -> int:
+    """CTAs of a kernel one SM holds at once (the occupancy query)."""
     blocks = ctypes.c_int(0)
     with torch.cuda.device(device_index):
         lib = _lib()
-        _raise_on(lib, lib.qc_unrolled_bwd_warp_occupancy(n, warps, smem,
-                                                          ctypes.byref(blocks)),
-                  "unrolled_bwd_warp occupancy")
+        _raise_on(lib, lib.qc_unrolled_occupancy(route_code, int(bwd), variant, n,
+                                                 threads, smem, ctypes.byref(blocks)),
+                  "unrolled occupancy")
     return blocks.value
 
 
-def warp_config(device: torch.device, n: int, k: int, p: int, u: int, b: int):
+def _warp_blocks(device_index: int, n: int, warps: int, smem: int,
+                 bwd: bool = True) -> int:
+    """CTAs of the warp route one SM holds at once."""
+    return _blocks(device_index, WARP_ROUTE, bwd, 0, n, 32 * warps, smem)
+
+
+def warp_smem(n: int, k: int, p: int, u: int, bwd: bool = True) -> Tuple[int, int]:
+    """Shared-memory bytes of the warp route: (a warp's, the CTA's own).
+    A warp holds the sample's ``[2, K, 2, 2]`` matrices and, backward, its
+    matrix cotangents and ``[2, P, 2^n]`` phase cotangents; the CTA one
+    copy of the ``[2, P, 2^n]`` phase rows and the ``[U, 32]`` 4x4s."""
+    pd = p * (1 << n)
+    per_warp = 16 * k + 2 * pd if bwd else 8 * k
+    return 4 * per_warp, 4 * (2 * pd + 32 * u)
+
+
+def warp_config(device: torch.device, n: int, k: int, p: int, u: int, b: int,
+                bwd: bool = True):
     """(warps a CTA, shared bytes a CTA, grid, CTAs an SM) of the warp
-    route. Its registers (about 150 a thread at 8 qubits) cap the warps an
-    SM holds, and how many of them fit depends on the CTA size: of 8, 4 and
-    2 warps a CTA (as far as SMEM_MAX allows) it takes the size that keeps
-    the most warps resident (the occupancy query), the larger on a tie
-    (fewer slabs for the slab sum). A persistent grid of as many CTAs as
-    the SMs hold at once, never more than the batch needs."""
-    per_warp, shared = warp_smem(n, k, p, u)
+    route. Its registers (about 150 a thread at 8 qubits backward) cap the
+    warps an SM holds, and how many of them fit depends on the CTA size:
+    of 8, 4 and 2 warps a CTA (as far as SMEM_MAX allows) it takes the size
+    that keeps the most warps resident (the occupancy query), the larger on
+    a tie (fewer slabs for the slab sum). A persistent grid of as many CTAs
+    as the SMs hold at once, never more than the batch needs."""
+    name = "unrolled_bwd_warp" if bwd else "unrolled_fwd_warp"
+    per_warp, shared = warp_smem(n, k, p, u, bwd)
     fit = (SMEM_MAX - shared) // per_warp
     if fit < 1:
-        raise ValueError(f"unrolled_bwd_warp: {per_warp} shared bytes a warp and "
+        raise ValueError(f"{name}: {per_warp} shared bytes a warp and "
                          f"{shared} a CTA (K = {k}, P = {p}, U = {u}) > {SMEM_MAX}")
     best = None
     for warps in sorted({min(w, fit) for w in (WARPS, 4, 2)}, reverse=True):
         smem = warps * per_warp + shared
-        blocks = _warp_blocks(device.index or 0, n, warps, smem)
+        blocks = _warp_blocks(device.index or 0, n, warps, smem, bwd)
         if best is None or blocks * warps > best[0] * best[1]:
             best = (blocks, warps, smem)
     blocks, warps, smem = best
     if blocks < 1:
-        raise ValueError(f"unrolled_bwd_warp: no CTA of {warps} warps and {smem} "
+        raise ValueError(f"{name}: no CTA of {warps} warps and {smem} "
                          "shared bytes fits an SM")
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return warps, smem, max(1, min(-(-b // warps), blocks * sms)), blocks
 
 
+def tile_smem(n: int, k: int, p: int, u: int, n_seg: int, n_steps: int, bwd: bool,
+              rows: bool, slab: bool) -> int:
+    """Shared-memory bytes a CTA of the tile route (``unrolled_tile_body``):
+    the segments' layouts (8 words each) and the steps' local words (one
+    each), the sample's planes (state, and backward cotangent), its
+    ``[2, K, 2, 2]`` matrices, the phase rows
+    (``rows``), the phase-cotangent slab (backward, ``slab``), the warps'
+    ``[W, K, 8]`` matrix-cotangent rows (backward) and the 4x4s."""
+    d = 1 << n
+    pd, warps = p * d, (d >> TILE_BITS) // 32
+    floats = (8 * n_seg + n_steps + (4 if bwd else 2) * d + 8 * k + (2 * pd if rows else 0)
+              + (2 * pd if bwd and slab else 0) + (warps * 8 * k if bwd else 0) + 32 * u)
+    return 4 * floats
+
+
+@dataclasses.dataclass(frozen=True)
+class TileLaunch:
+    threads: int  # 2^(n - TILE_BITS): one tile a thread
+    smem: int  # bytes a CTA
+    grid: int  # a persistent grid, never more CTAs than samples
+    blocks: int  # CTAs an SM holds
+    rows: bool  # the phase rows staged in shared memory (else __ldg)
+    slab: bool  # backward: the phase-cotangent slab in shared memory
+    variant: int  # the C entry's code: rows | slab << 1
+
+
+def tile_config(device: torch.device, mp: MicroProgram, k: int, p: int, u: int, b: int,
+                bwd: bool) -> TileLaunch:
+    """The tile route's launch: the phase rows staged in shared memory
+    where they fit under SMEM_MAX (else each diag reads them through
+    __ldg; staged, both directions ran 4-10% faster at 10q, at one and at
+    2.9 samples a CTA: ``chip_smoke.py --unrolled-step-costs``), backward
+    the phase-cotangent slab in shared memory where it fits (else in the
+    CTA's row of the partials); a persistent grid of as many CTAs as the
+    SMs hold at once (the occupancy query), never more than the batch."""
+    n_seg, threads = len(segments(mp)), (1 << mp.n) >> TILE_BITS
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    choices = ((True, True), (False, True), (False, False)) if bwd else (
+        (True, False), (False, False))
+    for rows, slab in choices:
+        smem = tile_smem(mp.n, k, p, u, n_seg, len(mp.steps), bwd, rows, slab)
+        if smem > SMEM_MAX:
+            continue
+        variant = int(rows) | int(slab) << 1
+        blocks = _blocks(device.index or 0, TILE_ROUTE, bwd, variant, mp.n, threads, smem)
+        if blocks >= 1:
+            return TileLaunch(threads, smem, max(1, min(b, blocks * sms)), blocks, rows,
+                              slab, variant)
+    name = "unrolled_bwd_tile" if bwd else "unrolled_fwd_tile"
+    raise ValueError(f"{name}: no CTA of {threads} threads fits an SM (K = {k}, "
+                     f"P = {p}, U = {u}, {smem} shared bytes)")
+
+
 def unrolled_bwd_partials(yr, yi, gr, gi, mre, mim, cos, sin, u4, mp: MicroProgram):
     """Backward kernel alone (CUDA tensors only): returns (gxr, gxi, gmre,
     gmim, partials [G, 2 * P * 2^n]); :func:`unrolled_reduce` finishes the
-    phase sums. A slab is cos's layout, then sin's. The route by n: the
-    warp kernel at n <= WARP_MAX_QUBITS, the CTA kernel above."""
-    route = (unrolled_bwd_warp_partials if mp.n <= WARP_MAX_QUBITS
-             else unrolled_bwd_cta_partials)
-    return route(yr, yi, gr, gi, mre, mim, cos, sin, u4, mp)
+    phase sums. A slab is cos's layout, then sin's. The route by n
+    (:func:`route`)."""
+    bwd = (unrolled_bwd_warp_partials if route(mp.n) == "warp"
+           else unrolled_bwd_cta_partials)
+    return bwd(yr, yi, gr, gi, mre, mim, cos, sin, u4, mp)
+
+
+def _bwd_outputs(yr, yi, mre, mim, cos, g):
+    """The backward's outputs: gx (re, im), the matrix cotangents, the
+    ``[G, 2 * P * 2^n]`` slabs."""
+    return (torch.empty_like(yr), torch.empty_like(yi), torch.empty_like(mre),
+            torch.empty_like(mim),
+            torch.empty((g, 2 * cos.numel()), dtype=torch.float32, device=yr.device))
 
 
 def unrolled_bwd_warp_partials(yr, yi, gr, gi, mre, mim, cos, sin, u4,
@@ -519,53 +704,33 @@ def unrolled_bwd_warp_partials(yr, yi, gr, gi, mre, mim, cos, sin, u4,
     b = yr.shape[0]
     if b == 0:
         raise ValueError("unrolled_bwd needs a non-empty batch")
-    lib = _lib()
-    words = step_words(mp)
     k, p, u = mre.shape[1], cos.shape[0], u4.shape[0]
-    warps, _, g, _ = warp_config(yr.device, mp.n, k, p, u, b)
-    gxr, gxi = torch.empty_like(yr), torch.empty_like(yi)
-    gmre, gmim = torch.empty_like(mre), torch.empty_like(mim)
-    partials = torch.empty((g, 2 * cos.numel()), dtype=torch.float32,
-                           device=yr.device)
-    err = lib.qc_unrolled_bwd_warp(
-        yr.data_ptr(), yi.data_ptr(), gr.data_ptr(), gi.data_ptr(),
-        mre.data_ptr(), mim.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-        u4.data_ptr(), gxr.data_ptr(), gxi.data_ptr(), gmre.data_ptr(),
-        gmim.data_ptr(), partials.data_ptr(), b, mp.n, k, p, u, warps,
-        words.ctypes.data, len(words), g,
-        torch.cuda.current_stream(yr.device).cuda_stream,
-    )
-    _raise_on(lib, err, "unrolled_bwd_warp")
-    LAUNCHES["unrolled_bwd_warp"] += 1
-    return gxr, gxi, gmre, gmim, partials
+    warps, smem, g, _ = warp_config(yr.device, mp.n, k, p, u, b)
+    out = _bwd_outputs(yr, yi, mre, mim, cos, g)
+    _launch("unrolled_bwd_warp", WARP_ROUTE, True, 0, mp,
+            (yr, yi, gr, gi, mre, mim, cos, sin, u4, *out), b, k, p, u, g, 32 * warps,
+            smem)
+    return out
 
 
 def unrolled_bwd_cta_partials(yr, yi, gr, gi, mre, mim, cos, sin, u4,
                               mp: MicroProgram):
-    """The CTA route of :func:`unrolled_bwd_partials` (the route at 10 <= n
-    <= 12; it takes any 1 <= n <= 12): one CTA a sample in shared memory."""
+    """The tile route of :func:`unrolled_bwd_partials` (10 <= n <= 12; it
+    takes any n >= TILE_MIN_QUBITS): one CTA a sample in shared memory, a
+    tile of the segment's bits a thread."""
     _check_cuda(mp, (yr, yi, gr, gi), mre, mim, cos, sin, u4)
+    if mp.n < TILE_MIN_QUBITS:
+        raise ValueError(f"unrolled_bwd_tile takes n >= {TILE_MIN_QUBITS}; got n = {mp.n}")
     b = yr.shape[0]
     if b == 0:
         raise ValueError("unrolled_bwd needs a non-empty batch")
-    lib = _lib()
-    words = step_words(mp)
-    g = grid_size(yr.device, b, mp.n)
-    gxr, gxi = torch.empty_like(yr), torch.empty_like(yi)
-    gmre, gmim = torch.empty_like(mre), torch.empty_like(mim)
-    partials = torch.empty((g, 2 * cos.numel()), dtype=torch.float32,
-                           device=yr.device)
-    err = lib.qc_unrolled_bwd(
-        yr.data_ptr(), yi.data_ptr(), gr.data_ptr(), gi.data_ptr(),
-        mre.data_ptr(), mim.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-        u4.data_ptr(), gxr.data_ptr(), gxi.data_ptr(), gmre.data_ptr(),
-        gmim.data_ptr(), partials.data_ptr(), b, mp.n, mre.shape[1], cos.shape[0],
-        threads(mp.n), words.ctypes.data, len(words), g,
-        torch.cuda.current_stream(yr.device).cuda_stream,
-    )
-    _raise_on(lib, err, "unrolled_bwd")
-    LAUNCHES["unrolled_bwd"] += 1
-    return gxr, gxi, gmre, gmim, partials
+    k, p, u = mre.shape[1], cos.shape[0], u4.shape[0]
+    cfg = tile_config(yr.device, mp, k, p, u, b, bwd=True)
+    out = _bwd_outputs(yr, yi, mre, mim, cos, cfg.grid)
+    _launch("unrolled_bwd_tile", TILE_ROUTE, True, cfg.variant, mp,
+            (yr, yi, gr, gi, mre, mim, cos, sin, u4, *out), b, k, p, u, cfg.grid,
+            cfg.threads, cfg.smem)
+    return out
 
 
 def unrolled_bwd(yr, yi, gr, gi, mre, mim, cos, sin, u4, mp: MicroProgram):
@@ -663,7 +828,7 @@ class FusedCircuit:
         if shots is not None or noise is not None:
             raise NotImplementedError(
                 "shot sampling and noise models are not yet ported "
-                "(ROADMAP queue 1 item 9)")
+                "(ROADMAP queue 1, hardware-fidelity modes)")
         yr, yi = self._planes(params, x)
         return (yr * yr + yi * yi) @ self.constants(x.device).sign
 

@@ -15,8 +15,9 @@ directly. The host waits on the device only when the caller reads a
 metric.
 
 Not ported yet: SPSA gradient modes, shot-sampled value terms and the
-adaptive loss balancers (ROADMAP queue 1 item 9), and the device-mesh data
-axis (item 13). Each raises ``NotImplementedError``.
+adaptive loss balancers (ROADMAP queue 1, hardware-fidelity modes), and the
+device-mesh data axis (queue 1, parallel). Each raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -76,20 +77,22 @@ def make_train_step(
         )
     if balancer != "none":
         raise NotImplementedError(
-            "adaptive loss balancers are not yet ported (ROADMAP queue 1 item 9)"
+            "adaptive loss balancers are not yet ported "
+            "(ROADMAP queue 1, hardware-fidelity modes)"
         )
     if config.gradient_mode != "backprop":
         raise NotImplementedError(
             f"gradient_mode {config.gradient_mode!r} is not yet ported "
-            "(ROADMAP queue 1 item 9)"
+            "(ROADMAP queue 1, hardware-fidelity modes)"
         )
     if shots_apply is not None:
         raise NotImplementedError(
-            "shot-sampled value terms are not yet ported (ROADMAP queue 1 item 9)"
+            "shot-sampled value terms are not yet ported "
+            "(ROADMAP queue 1, hardware-fidelity modes)"
         )
     if mesh is not None:
         raise NotImplementedError(
-            "the device-mesh data axis is not yet ported (ROADMAP queue 1 item 13)"
+            "the device-mesh data axis is not yet ported (ROADMAP queue 1, parallel)"
         )
     names = tuple(terms.keys())
     use_plateau = config.scheduler == "plateau"

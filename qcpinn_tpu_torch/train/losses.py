@@ -1,6 +1,6 @@
 """Loss helpers (port of qcpinn_tpu/train/losses.py: ``mse`` and the
 evaluation metric ``relative_l2``; the adaptive balancers are not yet
-ported, ROADMAP queue 1 item 9)."""
+ported: ROADMAP queue 1, hardware-fidelity modes)."""
 
 from __future__ import annotations
 

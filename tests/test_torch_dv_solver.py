@@ -67,7 +67,7 @@ def test_forward_and_grads_match_jax(backend):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="hardware-fidelity modes"):
         TSolver(TConfig(num_qubits=3, noise_depolarizing=0.1), device="cpu")
     tm = TSolver(TConfig(num_qubits=3), device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):

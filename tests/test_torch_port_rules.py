@@ -305,7 +305,8 @@ def test_warp_route_takes_the_cta_size_that_keeps_most_warps(monkeypatch):
     at most once."""
     resident = {8: 1, 4: 3, 2: 6}  # CTAs an SM: 8, 12, 12 warps
 
-    def blocks(dev, n, warps, smem):
+    def blocks(dev, n, warps, smem, bwd):
+        assert bwd
         assert smem == warps * sk.warp_smem(n, 25, 2, 2)[0] + sk.warp_smem(n, 25, 2, 2)[1]
         return resident[warps]
 
