@@ -138,6 +138,27 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                twice per step they see, the warp routes and no plain
                version called.
 
+6d. cli_train  the README's entry point, ``cli.main(["train", ...])`` on the
+               card with --no-plots, CLI_EPOCHS epochs each, for CLI_RUNS: DV
+               cascade 4q diffusion (hidden 50, B = 64, seed 1), Classical
+               (Hopfield) diffusion with --best-val, DV layered 8q helmholtz,
+               DV sim_circ_15 8q wave, DV navier_stokes with --loss-balancer
+               ema. Each: its train step (``train/loop.py::train_stage``,
+               the CLI's own model, terms and operator) graphed against the
+               same step eager from the same seed, 5 steps (3 eager
+               warm-ups, the capture, a replay), limits as in 6b; the eager
+               ms a step (its last 4 steps), the graphed one (10 replays)
+               with its launches, device time and idle share (a 3-step
+               profile); the CLI run with every kernel and plain-version launch
+               counter set to 0 just before and all still 0 after (the
+               path runs no kernel of the package, as in JAX); its final
+               loss, rel-L2 and trainable parameters (717 and 7,751 where
+               the JAX records give them); the checkpoint reloaded into a
+               fresh model, whose rel-L2 on the same grid is bit-equal to
+               the run's.
+6e. north_star_classical ``north_star.run`` with --solver classical (the
+               Hopfield baseline, one stage, 100 steps), the 20^3
+               evaluation: every loss finite, the kernel counters at 0.
 16. cluster_kernels the cluster pair (K1/K2 at 13-16 qubits) and K2b at 16
                qubits with B = 1536 stream rows and B = 425 value rows, and
                at 13 qubits with the same batches: against the plain
@@ -170,6 +191,7 @@ Seven measurements beside the smoke test:
     python3 chip_smoke.py --rates TREE         # TREE's rows of phase 4 and step_parity
     python3 chip_smoke.py --unrolled           # build, unrolled_shapes, unrolled_kernels
     python3 chip_smoke.py --sv-rates TREE      # TREE's K3/K4, their digests, 8q and 10q steps
+    python3 chip_smoke.py --cli-train          # device, cli_train, north_star_classical
 """
 
 import json
@@ -1173,7 +1195,7 @@ def take_steps(st, n):
     a chunk); the loss of each."""
     import torch
 
-    if isinstance(st, NorthStarStepper):
+    if isinstance(st, (NorthStarStepper, CliStepper)):
         return st.steps(n)
     return torch.stack([st.step() for _ in range(n)])
 
@@ -1289,6 +1311,201 @@ def stage1_jet_phase(dev, smi):
     emit({"phase": "stage1_jet", "parity_steps": GRAPH_PARITY_STEPS,
           "tol": {"loss_rtol": 2e-5, "params": "2e-4*max(|ref|,1e-3)"}, **row,
           "card": smi})
+
+
+CLI_EPOCHS = 200
+# (tag, train flags, the trainable count of the JAX record, where there is one)
+CLI_RUNS = (
+    ("dv_cascade_4q_diffusion", ["--problem", "diffusion", "--solver", "DV", "--ansatz",
+                                 "cascade", "--num-qubits", "4", "--hidden-dim", "50",
+                                 "--batch-size", "64", "--seed", "1"], 717),
+    ("classical_diffusion_best_val", ["--problem", "diffusion", "--solver", "Classical",
+                                      "--batch-size", "64", "--seed", "1", "--best-val"],
+     7751),
+    ("dv_layered_8q_helmholtz", ["--problem", "helmholtz", "--ansatz", "layered",
+                                 "--num-qubits", "8"], None),
+    ("dv_sim_circ_15_8q_wave", ["--problem", "wave", "--ansatz", "sim_circ_15",
+                                "--num-qubits", "8"], None),
+    ("dv_navier_stokes_ema", ["--problem", "navier_stokes", "--loss-balancer", "ema"], None),
+)
+
+
+class CliStepper:
+    """The train step of ``cli train FLAGS`` (its model, terms and operator,
+    set up by ``train/loop.py::train_stage`` as ``train`` sets it up), on a
+    fresh model from the flags' seed. ``steps(n)`` runs n steps through the
+    stage's ``run_steps`` (the captured graph) or, with ``eager``, through
+    ``step_fn``; both return the loss of each step."""
+
+    def __init__(self, flags, dev, eager=False):
+        from qcpinn_tpu_torch import cli
+        from qcpinn_tpu_torch.train.loop import train_stage
+
+        args = cli.build_parser().parse_args(["train", *flags])
+        cfg = cli.make_config(args)
+        self.model = cli.make_model(cfg, dev)
+        terms, operator, _, _ = cli.make_problem(args.problem, cfg)
+        self.stage, _ = train_stage(self.model, cfg, terms, operator, dev,
+                                    log=lambda msg: None)
+        self.eager = eager
+
+    @property
+    def graph(self):
+        return self.stage.run_steps.captured
+
+    def steps(self, n):
+        import torch
+
+        if self.eager:
+            return torch.stack([self.stage.step()["loss"] for _ in range(n)])
+        return self.stage.run(n)["loss"]
+
+    def step(self):
+        return self.steps(1)[0]
+
+
+def kernel_counters():
+    """Every kernel's and plain version's launch counter of the package."""
+    from qcpinn_tpu_torch.ops import block_kernel as bk, loop_kernel as lk, sv_kernel as sk
+
+    return {f"{mod.__name__.rsplit('.', 1)[1]}.{k}": v
+            for mod in (bk, lk, sk) for k, v in mod.LAUNCHES.items()}
+
+
+def reset_kernel_counters():
+    from qcpinn_tpu_torch.ops import block_kernel as bk, loop_kernel as lk, sv_kernel as sk
+
+    for mod in (bk, lk, sk):
+        mod.reset_launches()
+
+
+def cli_train_phase(dev, smi):
+    """Phase ``cli_train`` (docstring, 6d): each of CLI_RUNS through
+    ``cli.main`` on the card, its step graphed against eager, its counters,
+    metrics and checkpoint."""
+    import torch
+
+    from qcpinn_tpu_torch import bench, cli
+    from qcpinn_tpu_torch.bridge import params_from_jax
+    from qcpinn_tpu_torch.models.nn_core import count_trainable
+    from qcpinn_tpu_torch.train.loop import WARMUP_STEPS, inject_balancer_params
+    from qcpinn_tpu_torch.utils.checkpoint import load_checkpoint
+    from qcpinn_tpu_torch.utils.evaluation import evaluate_relative_l2
+
+    out_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "runs", "chip_smoke")
+    os.makedirs(out_root, exist_ok=True)
+    results = {}
+    n_par = WARMUP_STEPS + 2  # the eager warm-ups, the capture, one replay
+    for tag, flags, want_params in CLI_RUNS:
+        # graph against eager over n_par steps; the eager ms a step is the
+        # mean of the eager run's steps after the first
+        ref, got = CliStepper(flags, dev, eager=True), CliStepper(flags, dev)
+        l_ref = [float(take_steps(ref, 1)[0])]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        l_ref += take_steps(ref, n_par - 1).tolist()
+        eager_ms = 1e3 * (time.perf_counter() - t0) / (n_par - 1)
+        l_got = take_steps(got, n_par).tolist()
+        row = graph_parity(f"cli_train {tag}", ref, got, l_ref, l_got)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(take_steps(got, GRAPH_TIME_STEPS)[-1])
+        graph_ms = 1e3 * (time.perf_counter() - t0) / GRAPH_TIME_STEPS
+        prof = bench.profile(got, graph_ms, steps=3, top=3)
+        prof["top_device_ms_per_step"] = [[name[:60], ms] for name, ms
+                                          in prof["top_device_ms_per_step"]]
+        row.update({"eager_ms_per_step": eager_ms, "graph": prof})
+        del ref, got
+        torch.cuda.empty_cache()
+
+        metrics_path = os.path.join(out_root, f"{tag}.json")
+        argv = ["train", *flags, "--epochs", str(CLI_EPOCHS), "--print-every", "100",
+                "--no-plots", "--output-dir", out_root, "--run-name", tag,
+                "--metrics-json", metrics_path]
+        reset_kernel_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if cli.main(argv) != 0:
+            raise SystemExit(f"cli_train {tag}: exit code not 0")
+        seconds = time.perf_counter() - t0
+        counters = kernel_counters()
+        if any(counters.values()):
+            raise SystemExit(f"cli_train {tag}: kernels launched on this path: {counters}")
+        with open(metrics_path) as f:
+            m = json.load(f)
+        values = [m["final_loss"], *m["metrics"].values()]
+        if not all(math.isfinite(v) for v in values):
+            raise SystemExit(f"cli_train {tag}: non-finite result {m}")
+        if want_params is not None and m["trainable_params"] != want_params:
+            raise SystemExit(f"cli_train {tag}: {m['trainable_params']} trainable "
+                             f"parameters, the JAX record has {want_params}")
+
+        # the checkpoint, reloaded into a fresh model, against the run's metrics
+        args = cli.build_parser().parse_args(argv)
+        cfg = cli.make_config(args)
+        model = cli.make_model(cfg, dev)
+        terms, operator, analytic_u, analytic_r = cli.make_problem(args.problem, cfg)
+        inject_balancer_params(model, terms, cfg.loss_balancer)
+        run_dir = max((d for d in os.listdir(out_root) if d.startswith(tag + "-")))
+        ck = load_checkpoint(os.path.join(out_root, run_dir, "model"), model)
+        model.load_state_dict(params_from_jax(ck["bundle"]["params"]))
+        again = evaluate_relative_l2(
+            model, analytic_u, analytic_r=analytic_r,
+            operator=operator if analytic_r is not None else None,
+            num=args.eval_grid, hi=[1.0, math.pi, math.pi] if args.problem == "navier_stokes"
+            else None, dims=cli.IN_DIMS[args.problem], device=dev)
+        if again != m["metrics"]:
+            raise SystemExit(f"cli_train {tag}: reloaded checkpoint gives {again}, "
+                             f"the run {m['metrics']}")
+        results[tag] = {**row, "argv": argv, "seconds": seconds, "final_loss": m["final_loss"],
+                        "metrics": m["metrics"], "trainable_params": m["trainable_params"],
+                        "trainable_params_reloaded": count_trainable(model),
+                        "checkpoint_reload": "rel-L2 bit-equal",
+                        "kernel_counters": f"all {len(counters)} at 0"}
+        del model
+        torch.cuda.empty_cache()
+    emit({"phase": "cli_train", "epochs": CLI_EPOCHS, "parity_steps": n_par,
+          "tol": {"loss_rtol": 2e-5, "params": "2e-4*max(|ref|,1e-3)"}, "results": results,
+          "card": smi})
+
+
+def north_star_classical_phase(dev, smi):
+    """Phase ``north_star_classical`` (docstring, 6e)."""
+    from qcpinn_tpu_torch import north_star as ns
+
+    args = ns.parse_args(["--solver", "classical", "--chunk", "25", "--total-steps", "100",
+                          "--minutes", "1"])
+    reset_kernel_counters()
+    r = ns.run(args, device=dev)
+    counters = kernel_counters()
+    if any(counters.values()):
+        raise SystemExit(f"north_star_classical: kernels launched: {counters}")
+    if not (r["losses_finite"] and r["steps"] == 100
+            and all(math.isfinite(r[k]) for k in ("rel_l2_u", "rel_l2_r"))):
+        raise SystemExit(f"north_star_classical: {r}")
+    emit({"phase": "north_star_classical", **r,
+          "kernel_counters": f"all {len(counters)} at 0", "card": smi})
+
+
+def cli_train_check():
+    """``--cli-train``: the device phase's checks, then cli_train and
+    north_star_classical alone (no kernel is built: the path runs none)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import qcpinn_tpu_torch  # noqa: F401  (sets TF32 off)
+
+    t_start = time.perf_counter()
+    smi = nvidia_smi_line()
+    emit({"phase": "device", "name": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "allow_tf32": torch.backends.cuda.matmul.allow_tf32})
+    dev = torch.device("cuda")
+    cli_train_phase(dev, smi)
+    north_star_classical_phase(dev, smi)
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
 
 
 def stage2_rate(tree: str):
@@ -2293,6 +2510,8 @@ def main():
         return sv_rates(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--rates":
         return rates(sys.argv[2])
+    if sys.argv[1:] == ["--cli-train"]:
+        return cli_train_check()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -2423,6 +2642,12 @@ def main():
     graph_phase(dev, smi)
     torch.cuda.empty_cache()
     stage1_jet_phase(dev, smi)
+    torch.cuda.empty_cache()
+
+    # -- 6d-6e. the README's entry point (no kernel on this path) ------------
+    cli_train_phase(dev, smi)
+    torch.cuda.empty_cache()
+    north_star_classical_phase(dev, smi)
     torch.cuda.empty_cache()
 
     # -- 7-10. the 16q north-star path through the gate-loop kernels ---------

@@ -1,21 +1,30 @@
 """Parameter bridge between the JAX package's params pytree and the port's
-``DVFourierSolver`` and ``DVSolver`` modules, so one set of weights drives
-both packages.
+modules (``DVFourierSolver``, ``DVSolver``, ``ClassicalSolver``), so one set
+of weights drives both packages.
 
 JAX trees: ``DVFourierSolver`` is ``{"ff": {"B"}, "pre": [{w, b}, ...],
 "skip": [{w, b}], "q": [layers, P], "post": [{w, b}, ...]}``, with an RBF
 head also ``"rbf": {c, w, v, a}`` (same layout in both packages);
-``DVSolver`` is ``{"pre", "q", "post"}`` alone. ``w`` is ``[in, out]``; the
+``DVSolver`` is ``{"pre", "q", "post"}`` alone; ``ClassicalSolver`` is
+``{"pre": {w, b}, "hopfield": {"w_q": {w}, "w_k": {w}, "w_v": {w}},
+"post": {w, b}}`` (single layers, no bias in the projections). The loss
+balancers add ``"loss_log_vars"`` or ``"loss_ema"``: one scalar a term
+(``train/loop.py::inject_balancer_params``). ``w`` is ``[in, out]``; the
 module holds ``nn.Linear.weight[out, in]``, so weights transpose on the way.
 Leaves cross as numpy arrays.
 """
 
 from __future__ import annotations
 
+from typing import Callable
+
 import numpy as np
 import torch
+from torch import nn
 
 _MLPS = ("pre", "skip", "post")
+# scalar-per-key groups, laid out alike in both packages
+_GROUPS = ("rbf", "loss_log_vars", "loss_ema")
 
 
 def params_from_jax(tree) -> dict:
@@ -24,36 +33,76 @@ def params_from_jax(tree) -> dict:
     def t(a):
         return torch.tensor(np.asarray(a, dtype=np.float32))  # a copy
 
-    sd = {"q": t(tree["q"])}
+    sd = {}
+
+    def linear(prefix, layer):
+        sd[f"{prefix}.weight"] = t(np.asarray(layer["w"]).T)
+        if "b" in layer:
+            sd[f"{prefix}.bias"] = t(layer["b"])
+
+    if "q" in tree:
+        sd["q"] = t(tree["q"])
     if "ff" in tree:
         sd["B"] = t(tree["ff"]["B"])
     for name in _MLPS:
-        for i, layer in enumerate(tree.get(name, ())):
-            sd[f"{name}.{i}.weight"] = t(np.asarray(layer["w"]).T)
-            sd[f"{name}.{i}.bias"] = t(layer["b"])
-    for k, leaf in tree.get("rbf", {}).items():
-        sd[f"rbf.{k}"] = t(leaf)
+        layers = tree.get(name, ())
+        if isinstance(layers, dict):  # one layer (the Hopfield baseline)
+            linear(name, layers)
+        else:
+            for i, layer in enumerate(layers):
+                linear(f"{name}.{i}", layer)
+    for k, layer in tree.get("hopfield", {}).items():
+        linear(f"hopfield.{k}", layer)
+    for group in _GROUPS:
+        for k, leaf in tree.get(group, {}).items():
+            sd[f"{group}.{k}"] = t(leaf)
     return sd
 
 
-def grads_to_jax_layout(model) -> dict:
-    """The module's ``.grad`` fields as a JAX-shaped tree of numpy arrays.
-    ``ff.B`` (``DVFourierSolver`` only) is a buffer (``stop_gradient`` in
-    JAX), so its entry is zeros, as JAX reports it."""
+def _tree(model: nn.Module, leaf: Callable[[torch.Tensor], np.ndarray]) -> dict:
+    """The model's tensors in the JAX tree's layout, ``leaf`` of each."""
+    named = dict(model.named_parameters())
+    named.update(model.named_buffers())
 
-    def np_(t):
-        return t.detach().cpu().numpy()
+    def linear(prefix):
+        layer = {"w": np.ascontiguousarray(leaf(named[f"{prefix}.weight"]).T)}
+        if f"{prefix}.bias" in named:
+            layer["b"] = leaf(named[f"{prefix}.bias"])
+        return layer
 
-    def mlp(layers):
-        return [
-            {"w": np_(layer.weight.grad).T, "b": np_(layer.bias.grad)}
-            for layer in layers
-        ]
-
-    tree = {"pre": mlp(model.pre), "q": np_(model.q.grad), "post": mlp(model.post)}
-    if hasattr(model, "skip"):
-        tree["ff"] = {"B": np.zeros(tuple(model.B.shape), np.float32)}
-        tree["skip"] = mlp(model.skip)
-    if getattr(model, "rbf", None) is not None:
-        tree["rbf"] = {k: np_(p.grad) for k, p in model.rbf.items()}
+    tree = {}
+    for name in _MLPS:
+        mod = getattr(model, name, None)
+        if isinstance(mod, nn.ModuleList):
+            tree[name] = [linear(f"{name}.{i}") for i in range(len(mod))]
+        elif isinstance(mod, nn.Linear):
+            tree[name] = linear(name)
+    if "q" in named:
+        tree["q"] = leaf(named["q"])
+    if "B" in named:
+        tree["ff"] = {"B": leaf(named["B"])}
+    if isinstance(getattr(model, "hopfield", None), nn.ModuleDict):
+        tree["hopfield"] = {k: linear(f"hopfield.{k}") for k in model.hopfield}
+    for group in _GROUPS:
+        keys = [n[len(group) + 1:] for n in named if n.startswith(group + ".")]
+        if keys:
+            tree[group] = {k: leaf(named[f"{group}.{k}"]) for k in keys}
     return tree
+
+
+def params_to_jax(model: nn.Module) -> dict:
+    """The model's parameters and buffers as a JAX params tree of numpy
+    arrays (copies): the inverse of :func:`params_from_jax`."""
+    return _tree(model, lambda t: t.detach().cpu().numpy().copy())
+
+
+def grads_to_jax_layout(model: nn.Module) -> dict:
+    """The module's ``.grad`` fields as a JAX-shaped tree of numpy arrays.
+    A buffer (``ff.B``, the EMA balancer's state: ``stop_gradient`` in JAX)
+    has zeros, as JAX reports it."""
+
+    def grad(t):
+        g = t.grad if isinstance(t, nn.Parameter) else torch.zeros_like(t)
+        return g.detach().cpu().numpy()
+
+    return _tree(model, grad)

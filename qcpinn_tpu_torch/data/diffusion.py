@@ -1,16 +1,20 @@
-"""Convection-diffusion analytic solution, forcing and samplers (port of
+"""Convection-diffusion analytic solutions, forcing and samplers (port of
 qcpinn_tpu/data/diffusion.py).
 
-Gaussian pulse (data/diffusion_dataset.py:20-38):
-u = exp(-100((x-0.5)^2 + (y-0.5)^2)) * exp(-t), with closed-form partials
-and forcing r = u_t + v.grad(u) - D lap(u). Both the reference's second
-partials (constant -400, kept for parity) and the true ones (-200) are
-here; see :func:`u_xx`.
+1. Gaussian pulse (data/diffusion_dataset.py:20-38):
+   u = exp(-100((x-0.5)^2 + (y-0.5)^2)) * exp(-t), with closed-form partials
+   and forcing r = u_t + v.grad(u) - D lap(u). Both the reference's second
+   partials (constant -400, kept for parity) and the true ones (-200) are
+   here; see :func:`u_xx`.
+2. Separable sine (train_hybrid_qpinn.py:116-131):
+   u = sin(pi x) sin(pi y) exp(-2 pi^2 D t), which solves the pure
+   diffusion equation u_t = D lap(u) with zero Dirichlet boundaries.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -75,6 +79,18 @@ def r_true(txy, D: float = DEFAULT_D, v_x: float = DEFAULT_V_X, v_y: float = DEF
         + v_y * u_y(txy)
         - D * (u_xx_true(txy) + u_yy_true(txy))
     )
+
+
+def u_sine(txy: torch.Tensor, D: float = DEFAULT_D) -> torch.Tensor:
+    t = txy[:, 0:1]
+    x = txy[:, 1:2]
+    y = txy[:, 2:3]
+    pi = math.pi
+    return torch.sin(pi * x) * torch.sin(pi * y) * torch.exp(-2.0 * pi**2 * D * t)
+
+
+def zero_target(txy: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((txy.shape[0], 1), dtype=txy.dtype, device=txy.device)
 
 
 def _rows_on(sampler, device: torch.device, *arrays) -> Tuple[torch.Tensor, ...]:
@@ -167,3 +183,32 @@ def pulse_residual_sampler(
 
 def _box(rows) -> np.ndarray:
     return np.asarray(rows, dtype=np.float32)
+
+
+def gaussian_pulse_samplers() -> dict:
+    """Canonical IC/BC/domain boxes (data/diffusion_dataset.py:39-57):
+    IC at t=0; Dirichlet boundaries at x=0 and x=1; forcing over the cube.
+    The forcing is the reference's ``r`` (its defect kept, see
+    :func:`u_xx`)."""
+    return {
+        "ics": Sampler(_box([[0, 0, 0], [0, 1, 1]]), u, "Initial Condition"),
+        "bc1": Sampler(_box([[0, 0, 0], [1, 0, 1]]), u, "Dirichlet BC1"),
+        "bc2": Sampler(_box([[0, 1, 0], [1, 1, 1]]), u, "Dirichlet BC2"),
+        "res": Sampler(_box([[0, 0, 0], [1, 1, 1]]), r, "Forcing"),
+    }
+
+
+def sine_samplers(D: float = DEFAULT_D) -> dict:
+    """train_hybrid_qpinn.py:159-200: IC from the analytic solution, four
+    zero-Dirichlet boundaries, zero-residual domain sampler."""
+    def ic_fn(X):
+        return u_sine(X, D)
+
+    return {
+        "ics": Sampler(_box([[0, 0, 0], [0, 1, 1]]), ic_fn, "Initial Condition"),
+        "bc1": Sampler(_box([[0, 0, 0], [1, 0, 1]]), zero_target, "x=0"),
+        "bc2": Sampler(_box([[0, 1, 0], [1, 1, 1]]), zero_target, "x=1"),
+        "bc3": Sampler(_box([[0, 0, 0], [1, 1, 0]]), zero_target, "y=0"),
+        "bc4": Sampler(_box([[0, 0, 1], [1, 1, 1]]), zero_target, "y=1"),
+        "res": Sampler(_box([[0, 0, 0], [1, 1, 1]]), zero_target, "Residual"),
+    }

@@ -17,16 +17,19 @@ from torch.nn import functional as F
 
 
 def linear_init(
-    in_dim: int, out_dim: int, generator: Optional[torch.Generator] = None
+    in_dim: int, out_dim: int, generator: Optional[torch.Generator] = None,
+    bias: bool = True,
 ) -> nn.Linear:
-    """Xavier-normal weight (std = sqrt(2/(in+out))), zero bias."""
-    layer = nn.Linear(in_dim, out_dim)
+    """Xavier-normal weight (std = sqrt(2/(in+out))), zero bias (none with
+    ``bias=False``)."""
+    layer = nn.Linear(in_dim, out_dim, bias=bias)
     std = math.sqrt(2.0 / (in_dim + out_dim))
     with torch.no_grad():
         layer.weight.copy_(
             std * torch.randn((out_dim, in_dim), generator=generator)
         )
-        layer.bias.zero_()
+        if bias:
+            layer.bias.zero_()
     return layer
 
 
@@ -52,6 +55,20 @@ def mlp_apply(
         if i < n - 1 or final_activation:
             x = torch.tanh(x)
     return x
+
+
+def count_params(model: nn.Module) -> int:
+    """Every tensor of the model: its parameters and its buffers (the
+    Fourier map's ``B``, the EMA balancer's state)."""
+    return sum(t.numel() for t in (*model.parameters(), *model.buffers()))
+
+
+def count_trainable(model: nn.Module) -> int:
+    """The trainable tensors only. The Fourier-feature matrix ``B`` is drawn
+    once and never updated, so it is a buffer and does not count, as in the
+    JAX package's ``count_trainable``; the reference's documented model
+    sizes count trainable parameters only."""
+    return sum(p.numel() for p in model.parameters() if p.requires_grad)
 
 
 def fourier_features_init(

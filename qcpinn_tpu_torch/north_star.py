@@ -28,9 +28,11 @@ not rounded.
 ``--solver plain`` trains the plain ``DVSolver`` (encoder MLP straight to
 the angles, no Fourier map, skip or RBF head) in one stage, as the JAX
 script does: the tangent-stream residual at n >= 10, below that the
-forward-mode residual on the plain ``block`` engine.
-``--solver classical`` (Hopfield) is not yet ported (ROADMAP queue 1,
-``--solver classical``).
+forward-mode residual on the plain ``block`` engine. ``--solver
+classical`` trains the Hopfield baseline (``ClassicalSolver``, no circuit)
+in one stage with ``diffusion_operator_fwd`` and its value terms fused
+into one call, as the JAX script does, though that model couples the
+batch (a known deviation of the JAX script's, kept: ROADMAP queue 3).
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ import math
 import sys
 import time
 import zlib
-from typing import Callable, Optional
+from typing import Optional
 
 import torch
 
@@ -51,13 +53,14 @@ from .bench import card
 from .config import QCPINNConfig
 from .data import diffusion as dd
 from .models import nn_core as nc
+from .models.classical_solver import ClassicalSolver
 from .models.dv_fourier import DVFourierSolver, ZeroQ
 from .models.dv_solver import DVSolver
 from .physics.jet import diffusion_jet
 from .physics.operators_fwd import diffusion_operator_fwd
 from .physics.streams import dv_diffusion_residual_streams
 from .train import optim as topt
-from .train.loop import TermSpec, make_train_step
+from .train.loop import Stage, TermSpec, make_train_step
 from .utils.evaluation import evaluate_relative_l2
 
 # engines with first-order reverse AD only: no forward-mode residual
@@ -163,10 +166,6 @@ def solver_name(args) -> str:
 def build_model(args, device):
     """(config, model, use_streams, stage-2 engine name) for ``args``."""
     solver = solver_name(args)
-    if solver == "classical":
-        raise NotImplementedError(
-            "--solver classical (Hopfield) is not yet ported "
-            "(ROADMAP queue 1, --solver classical)")
     cfg = QCPINNConfig(
         num_qubits=args.qubits,
         num_quantum_layers=args.layers,
@@ -184,12 +183,15 @@ def build_model(args, device):
             skip_dim=args.skip_dim, rbf_count=args.rbf, rbf_width=args.rbf_width,
             rbf_centers=rbf_centers(args, device), device=device,
         )
+    elif solver == "classical":
+        model = ClassicalSolver(cfg, device=device)
     else:
         model = DVSolver(cfg, device=device)
     # tangent-stream residuals at high qubit counts (nested AD through a
     # 2^16 state would cap the batch); decided before the engine, since a
     # forward-mode residual through the circuit needs the block engine
-    use_streams = not args.no_quantum and not args.supervised and args.qubits >= 10
+    use_streams = (solver != "classical" and not args.no_quantum
+                   and not args.supervised and args.qubits >= 10)
     backend = args.backend
     need_fwd_ad = not args.supervised and not use_streams
     if need_fwd_ad and backend in ("auto", *REVERSE_ONLY):
@@ -202,42 +204,16 @@ def build_model(args, device):
 
 def set_engine(model, args, backend: str) -> None:
     """The stage-2 quantum block: identity (``--no-quantum``), the
-    gate-by-gate circuit (``xla``) or an engine from ops/backends.py."""
+    gate-by-gate circuit (``xla``) or an engine from ops/backends.py; none
+    for the Hopfield baseline, which has no circuit."""
+    if isinstance(model, ClassicalSolver):
+        return
     if args.no_quantum:
         model._fused = IdentityQ()
     elif backend == "xla":
         model._fused = None
     else:
         model.use_fused(backend)
-
-
-@dataclasses.dataclass
-class Stage:
-    """One Adam stage of the run (:func:`make_stage`): the model's trainable
-    tensors, the optimizer and plateau state, the stage's sample stream, and
-    ``make_train_step``'s two steps. ``run(n)`` takes n steps through
-    ``run_steps`` (on the card, one captured CUDA graph replayed a step) and
-    returns the metric trace; ``step()`` takes one eager step (the plain
-    version) and returns its metrics."""
-
-    label: str
-    horizon: int
-    params: list
-    opt_state: object
-    sched: object
-    gen: torch.Generator
-    step_fn: Callable
-    run_steps: Callable
-
-    def run(self, n: int) -> dict:
-        self.opt_state, self.sched, trace = self.run_steps(
-            self.params, self.opt_state, self.sched, self.gen, n)
-        return trace
-
-    def step(self) -> dict:
-        self.opt_state, self.sched, metrics = self.step_fn(
-            self.params, self.opt_state, self.sched, self.gen)
-        return metrics
 
 
 def make_stage(model, cfg, args, terms, label: str, backend: str = "block",
@@ -349,7 +325,7 @@ def run(args, device=None) -> dict:
         "rel_l2_r": metrics.get("rel_l2_r_percent", None),
         # the quantum train step's rate over its timed steps
         "points_per_sec": timed * args.batch / max(seconds, 1e-9),
-        "backend": type(model.qblock).__name__,
+        "backend": type(model.qblock).__name__ if hasattr(model, "qblock") else None,
     }
     if stage_info:
         result.update(stage_info)

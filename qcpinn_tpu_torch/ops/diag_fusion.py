@@ -21,6 +21,7 @@ from typing import List, Tuple, Union
 import numpy as np
 import torch
 
+from . import gates
 from .program import Op, Program
 
 DIAGONAL_KINDS = {"rz", "ps", "crz", "cz"}
@@ -63,23 +64,24 @@ class DiagRun:
         device = torch.device(device)
         cache = self.__dict__.setdefault("_on_device", {})
         if device not in cache:
-            bits_np = bit_matrix(self.n)
+            with gates.untransformed():
+                bits_np = bit_matrix(self.n)
 
-            def dev(a, dtype=torch.float32):
-                return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+                def dev(a, dtype=torch.float32):
+                    return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
-            c = {"bits_t": dev(bits_np.T), "w1": dev(self.w1), "c1": dev(self.c1),
-                 "pidx": dev(self.pidx, torch.long)}
-            if self.quad:
-                c["pair"] = dev(np.stack(
-                    [bits_np[:, q] * bits_np[:, t] for q, t, _ in self.quad]))
-                c["ks"] = dev([q[2] for q in self.quad], torch.long)
-            if self.const_pairs:
-                cvec = np.zeros(1 << self.n, dtype=np.float32)
-                for a, t in self.const_pairs:
-                    cvec += np.pi * bits_np[:, a] * bits_np[:, t]
-                c["cvec"] = dev(cvec)
-            cache[device] = c
+                c = {"bits_t": dev(bits_np.T), "w1": dev(self.w1), "c1": dev(self.c1),
+                     "pidx": dev(self.pidx, torch.long)}
+                if self.quad:
+                    c["pair"] = dev(np.stack(
+                        [bits_np[:, q] * bits_np[:, t] for q, t, _ in self.quad]))
+                    c["ks"] = dev([q[2] for q in self.quad], torch.long)
+                if self.const_pairs:
+                    cvec = np.zeros(1 << self.n, dtype=np.float32)
+                    for a, t in self.const_pairs:
+                        cvec += np.pi * bits_np[:, a] * bits_np[:, t]
+                    c["cvec"] = dev(cvec)
+                cache[device] = c
         return cache[device]
 
     def phases(self, params: torch.Tensor) -> torch.Tensor:

@@ -37,6 +37,14 @@ SWAP = np.array(
 _HOST_CONSTS: dict = {}
 
 
+def untransformed():
+    """Context for building a cached device constant: outside any active
+    ``torch.func`` transform. Inside a nested ``jvp`` (the forward-mode PDE
+    operators) every new tensor is wrapped at the current level, and a
+    cached one used after that level has exited fails."""
+    return torch._C._DisableFuncTorch()
+
+
 def host_const(a: np.ndarray, device, dtype=CDTYPE) -> torch.Tensor:
     """A fixed numpy array (a gate matrix, a mask) as a tensor on
     ``device``, built once per content and device: a call then copies
@@ -44,7 +52,8 @@ def host_const(a: np.ndarray, device, dtype=CDTYPE) -> torch.Tensor:
     a = np.ascontiguousarray(a)
     key = (a.shape, a.dtype.str, a.tobytes(), dtype, torch.device(device))
     if key not in _HOST_CONSTS:
-        _HOST_CONSTS[key] = torch.as_tensor(a, dtype=dtype, device=device)
+        with untransformed():
+            _HOST_CONSTS[key] = torch.as_tensor(a, dtype=dtype, device=device)
     return _HOST_CONSTS[key]
 
 

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from . import gates
-from .gates import host_const
+from .gates import host_const, untransformed
 
 CDTYPE = torch.complex64
 RDTYPE = torch.float32
@@ -122,7 +122,8 @@ def _z_sign_matrix(n: int) -> np.ndarray:
 @functools.lru_cache(maxsize=32)
 def z_sign(n: int, device) -> torch.Tensor:
     """The ``[2^n, n]`` sign matrix on ``device``, built once per device."""
-    return torch.as_tensor(_z_sign_matrix(n), device=device)
+    with untransformed():
+        return torch.as_tensor(_z_sign_matrix(n), device=device)
 
 
 def z_expvals(state: torch.Tensor, n: int) -> torch.Tensor:
@@ -161,8 +162,9 @@ def _product_consts(n: int, device):
     bits = bit_matrix(n)  # [2^n, n] static
     pop = bits.sum(axis=1).astype(np.int64) % 4
     phase = np.array([1, -1j, -1, 1j], dtype=np.complex64)[pop]
-    return (torch.as_tensor(bits.T == 1.0, device=device),
-            torch.as_tensor(phase, device=device))
+    with untransformed():
+        return (torch.as_tensor(bits.T == 1.0, device=device),
+                torch.as_tensor(phase, device=device))
 
 
 def encode_amplitude(x: torch.Tensor, n: int, eps: float = 1e-12) -> torch.Tensor:

@@ -1,9 +1,12 @@
-"""Physics-informed train step (port of qcpinn_tpu/train/loop.py:
-``TermSpec`` and ``make_train_step`` in backprop mode).
+"""Physics-informed training (port of qcpinn_tpu/train/loop.py):
+``TermSpec``, ``diffusion_terms``, ``make_train_step`` in backprop mode
+with the loss balancers, ``inject_balancer_params``, ``make_val_fn`` and
+the driver ``train``.
 
 One step: sample every term's points -> forward -> PDE residual (the
 tangent-stream ``residual_fn`` or a generic ``operator``) -> weighted MSE
--> grad -> clip + Adam (``train/optim.py``) -> plateau scheduler.
+(or a balancer's combination) -> grad -> clip + decay + Adam
+(``train/optim.py``) -> plateau scheduler.
 
 The JAX package compiles the step and scans a chunk of steps in one
 dispatch (``jax.jit`` of ``lax.scan``). On the card the port captures one
@@ -12,10 +15,10 @@ the host then launches one graph where the eager step launched thousands
 of kernels. The eager ``step_fn`` stays as the plain version: the CPU
 runs it, and on the card a caller that compares against it calls it
 directly. The host waits on the device only when the caller reads a
-metric.
+metric (``train`` reads each chunk's trace once).
 
-Not ported yet: SPSA gradient modes, shot-sampled value terms and the
-adaptive loss balancers (ROADMAP queue 1, hardware-fidelity modes), and the
+Not ported yet: SPSA and parameter-shift gradient modes and shot-sampled
+value terms (ROADMAP queue 1, hardware-fidelity modes), and the
 device-mesh data axis (queue 1, parallel). Each raises
 ``NotImplementedError``.
 """
@@ -23,14 +26,21 @@ device-mesh data axis (queue 1, parallel). Each raises
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Sequence
+import time
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
+from torch import nn
 
+from .. import resolve_device
+from ..bridge import params_from_jax
 from . import losses as L
 from . import optim
 
 WARMUP_STEPS = 3  # eager steps before a capture (CapturedStep)
+# the sample stream's seed is the config's plus this, so that it is not the
+# stream the model's initial weights were drawn from
+SAMPLE_SEED_OFFSET = 1_000_003
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,6 +53,52 @@ class TermSpec:
     weight: float
     batch: int
     kind: str = "value"  # value | residual
+
+
+def diffusion_terms(
+    samplers: Dict[str, object],
+    batch_size: int,
+    weights: Tuple[float, float, float] = (2.0, 4.0, 2.0),
+) -> Dict[str, TermSpec]:
+    """The canonical diffusion loss (trainer/diffusion_train.py:30-47):
+    residual over the full batch, IC and BC1 at batch/3 each, weights
+    (w_res, w_bc, w_ic). The reference samples only bcs_sampler[0]."""
+    w_r, w_bc, w_ic = weights
+    third = max(batch_size // 3, 1)
+    return {
+        "res": TermSpec(samplers["res"], w_r, batch_size, "residual"),
+        "bc": TermSpec(samplers["bc1"], w_bc, third, "value"),
+        "ic": TermSpec(samplers["ics"], w_ic, third, "value"),
+    }
+
+
+class BufferDict(nn.Module):
+    """Named scalar buffers: the EMA balancer's state, which the step
+    overwrites by its own rule (never by the optimizer) and which is saved
+    with the model's parameters."""
+
+    def __init__(self, values: Dict[str, torch.Tensor]):
+        super().__init__()
+        for k, v in values.items():
+            self.register_buffer(k, v)
+
+    def as_dict(self) -> Dict[str, torch.Tensor]:
+        return dict(self.named_buffers())
+
+
+def inject_balancer_params(model: nn.Module, terms, balancer: str) -> nn.Module:
+    """Attach the balancer's tensors to ``model`` (nothing for 'none' or when
+    present already, as on resume), so they are saved and restored with its
+    parameters: ``model.loss_log_vars``, trainable log-variances, for
+    'uncertainty'; ``model.loss_ema``, the EMA state (buffers), for 'ema'.
+    The JAX package keeps the same leaves in its params tree."""
+    device = next(model.parameters()).device
+    if balancer == "uncertainty" and not hasattr(model, "loss_log_vars"):
+        model.loss_log_vars = nn.ParameterDict({
+            k: nn.Parameter(v) for k, v in L.uncertainty_init(terms, device).items()})
+    if balancer == "ema" and not hasattr(model, "loss_ema"):
+        model.loss_ema = BufferDict(L.ema_weights_init(terms, device))
+    return model
 
 
 def make_train_step(
@@ -66,6 +122,20 @@ def make_train_step(
     ``fuse_value_terms`` every value term goes through ONE ``model_apply``
     on the concatenated points.
 
+    ``balancer`` selects the adaptive loss balancing (train/losses.py),
+    whose tensors ``inject_balancer_params`` attaches to the model (here
+    ``model_apply``):
+
+    - ``"none"``: the static TermSpec weights.
+    - ``"uncertainty"``: total = sum_k exp(-s_k) L_k + s_k with one
+      trainable log-variance per term (``model.loss_log_vars``, among the
+      parameters the optimizer steps), replacing the static weights.
+    - ``"ema"``: each term's static weight divided by the EMA of its
+      ratio-to-average magnitude (``model.loss_ema``, buffers: the step
+      computes the new EMA from the detached term losses, weighs with it
+      and copies it into the buffers in place after the update, inside the
+      captured graph on the card).
+
     ``step_fn(params, opt_state, sched, generator) -> (opt_state, sched,
     metrics)`` updates ``params`` (the model's trainable tensors) in place;
     ``run_steps(..., n_steps)`` (a :class:`StepRunner`) runs that many
@@ -74,11 +144,6 @@ def make_train_step(
     if balancer not in ("none", "ema", "uncertainty"):
         raise ValueError(
             f"unknown balancer {balancer!r}; have none, ema, uncertainty"
-        )
-    if balancer != "none":
-        raise NotImplementedError(
-            "adaptive loss balancers are not yet ported "
-            "(ROADMAP queue 1, hardware-fidelity modes)"
         )
     if config.gradient_mode != "backprop":
         raise NotImplementedError(
@@ -94,6 +159,12 @@ def make_train_step(
         raise NotImplementedError(
             "the device-mesh data axis is not yet ported (ROADMAP queue 1, parallel)"
         )
+    state_name = {"uncertainty": "loss_log_vars", "ema": "loss_ema"}.get(balancer)
+    if state_name is not None and not hasattr(model_apply, state_name):
+        raise ValueError(f"balancer {balancer!r} needs model.{state_name}: "
+                         "call inject_balancer_params first")
+    log_vars = model_apply.loss_log_vars if balancer == "uncertainty" else None
+    ema = model_apply.loss_ema.as_dict() if balancer == "ema" else None
     names = tuple(terms.keys())
     use_plateau = config.scheduler == "plateau"
     value_names = tuple(n for n in names if terms[n].kind != "residual")
@@ -120,13 +191,24 @@ def make_train_step(
                 b = batches[n][0].shape[0]
                 per_term[n] = L.mse(preds[ofs : ofs + b], batches[n][1])
                 ofs += b
+        if balancer == "uncertainty":
+            # the log-variances replace the static weights, on the raw
+            # term losses (si_q_pinn_improved.py:143-164)
+            return L.uncertainty_combine(log_vars, per_term), per_term, None
+        if balancer == "ema":
+            detached = {k: v.detach() for k, v in per_term.items()}
+            new_ema = L.ema_weights_update(ema, detached)
+            total = sum(terms[n].weight * per_term[n]
+                        / torch.clamp(new_ema[n].detach(), min=1e-8)
+                        for n in names)
+            return total, per_term, new_ema
         total = sum(terms[n].weight * per_term[n] for n in names)
-        return total, per_term
+        return total, per_term, None
 
     def step_fn(params: Sequence[torch.Tensor], opt_state, sched, generator):
         batches = {n: terms[n].sampler.sample(generator, terms[n].batch)
                    for n in names}
-        loss, per_term = loss_fn(batches)
+        loss, per_term, new_ema = loss_fn(batches)
         grads = torch.autograd.grad(loss, list(params), allow_unused=True)
         # a parameter the loss does not reach (the quantum block while it
         # is zeroed) gets a zero gradient, as in JAX
@@ -136,6 +218,11 @@ def make_train_step(
         if use_plateau:
             updates = optim.scale_updates(updates, sched.scale)
         optim.apply_updates(params, updates)
+        if new_ema is not None:
+            # the EMA state follows its own rule, never the optimizer
+            with torch.no_grad():
+                for k, buf in ema.items():
+                    buf.copy_(new_ema[k])
         loss = loss.detach()
         if use_plateau:
             sched = optim.plateau_update(
@@ -266,3 +353,184 @@ class CapturedStep:
         self.graph.replay()
         self.replays += 1
         return self.out
+
+
+@dataclasses.dataclass
+class Stage:
+    """One Adam run over a model's trainable tensors: the optimizer and
+    plateau state, the sample stream, and ``make_train_step``'s two steps.
+    ``run(n)`` takes n steps through ``run_steps`` (on the card, one
+    captured CUDA graph replayed a step) and returns the metric trace;
+    ``step()`` takes one eager step (the plain version) and returns its
+    metrics."""
+
+    label: str
+    horizon: int
+    params: list
+    opt_state: object
+    sched: object
+    gen: torch.Generator
+    step_fn: Callable
+    run_steps: Callable
+
+    def run(self, n: int) -> dict:
+        self.opt_state, self.sched, trace = self.run_steps(
+            self.params, self.opt_state, self.sched, self.gen, n)
+        return trace
+
+    def step(self) -> dict:
+        self.opt_state, self.sched, metrics = self.step_fn(
+            self.params, self.opt_state, self.sched, self.gen)
+        return metrics
+
+
+def make_val_fn(model_apply: Callable, X_val: torch.Tensor, y_val: torch.Tensor) -> Callable:
+    """``val_fn() -> scalar tensor``: the validation MSE of the model as it
+    stands, on a fixed set, for best-val tracking."""
+
+    @torch.no_grad()
+    def val_fn():
+        return torch.mean((model_apply(X_val) - y_val) ** 2)
+
+    return val_fn
+
+
+def train_stage(
+    model: nn.Module,
+    config,
+    terms: Dict[str, TermSpec],
+    operator: Callable,
+    device=None,
+    resume: Optional[dict] = None,
+    log: Callable[[str], None] = print,
+) -> Tuple[Stage, int]:
+    """``train``'s set-up, without its loop: (the stage, the step it starts
+    at). The balancer's tensors are injected into ``model``; the optimizer
+    is clip + coupled decay + Adam at the config's lr, schedule and
+    horizon; the sample stream is a generator on ``device`` seeded from the
+    config. ``resume`` ({"params": a JAX-layout tree, "opt_state",
+    "sched", "rng", "step"}, as ``utils.checkpoint.load_checkpoint``'s
+    bundle gives them, any of them absent or None) restores that state.
+    Value terms are fused into one model call unless the model couples the
+    batch (``batch_coupled``)."""
+    device = resolve_device(device)
+    on = next(model.parameters()).device
+    if on.type != device.type or device.index not in (None, on.index):
+        raise ValueError(f"the model is on {on}; train on {device}")
+    balancer = config.loss_balancer
+    inject_balancer_params(model, terms, balancer)
+    if balancer != "none":
+        log(f"adaptive loss balancer: {balancer} (train/losses.py; "
+            "uncertainty replaces the static term weights, ema divides "
+            "them by each term's EMA ratio-to-average)")
+    optimizer = optim.make_optimizer(
+        config.lr,
+        grad_clip=config.effective_grad_clip,
+        schedule=config.scheduler,
+        epochs=config.epochs,
+        weight_decay=config.effective_weight_decay,
+    )
+    gen = torch.Generator(device=on).manual_seed(config.seed + SAMPLE_SEED_OFFSET)
+    resume = resume or {}
+    if resume.get("params") is not None:
+        model.load_state_dict(params_from_jax(resume["params"]))
+    if resume.get("rng") is not None:
+        gen.set_state(resume["rng"])
+    params = [p for p in model.parameters() if p.requires_grad]
+    opt_state = optimizer.init(params)
+    if resume.get("opt_state") is not None:
+        saved = resume["opt_state"]
+        if [tuple(m.shape) for m in saved.mu] != [tuple(p.shape) for p in params]:
+            raise ValueError("the saved optimizer state does not fit the model's "
+                             "trainable tensors")
+        opt_state = optim.AdamState(saved.count.to(on), [m.to(on) for m in saved.mu],
+                                    [v.to(on) for v in saved.nu])
+    sched = optim.plateau_init(on)
+    if resume.get("sched") is not None:
+        sched = optim.PlateauState(*(t.to(on) for t in resume["sched"]))
+    if config.shots is not None and config.gradient_mode == "backprop":
+        log(f"shots={config.shots} ignored: backprop mode trains on analytic "
+            "expectations (the reference's AER semantics — 'Ignored in AER "
+            "analytic mode'); use gradient_mode='parameter-shift' or 'spsa' "
+            "for shot-noise training")
+    step_fn, run_steps = make_train_step(
+        model, operator, terms, optimizer, config,
+        fuse_value_terms=not getattr(model, "batch_coupled", False),
+        balancer=balancer,
+    )
+    stage = Stage("train", config.epochs, params, opt_state, sched, gen, step_fn,
+                  run_steps)
+    return stage, int(resume.get("step", 0))
+
+
+def train(
+    model: nn.Module,
+    config,
+    terms: Dict[str, TermSpec],
+    operator: Callable,
+    logger=None,
+    mesh=None,
+    checkpoint_fn: Optional[Callable] = None,
+    resume: Optional[dict] = None,
+    val_fn: Optional[Callable] = None,
+    device=None,
+) -> Tuple[nn.Module, list]:
+    """Full training driver on ``device`` (default: the card; raises without
+    CUDA). Trains ``model`` in place and returns it with the loss history.
+
+    Chunks of ``print_every`` steps run through the stage's ``run_steps``
+    (on the card, one captured CUDA graph replayed a step); the host reads
+    each chunk's trace once and logs a line in the JAX package's format.
+    ``resume`` continues a run (see :func:`train_stage`), the reference's
+    --start-epoch/--load capability (cg-hqpinn/...:802-804).
+    ``checkpoint_fn(model, stage, step, loss_history)`` is called after
+    every chunk. ``val_fn() -> scalar`` (:func:`make_val_fn`) enables
+    best-validation tracking (si_q_pinn_improved.py:608-624): it is
+    evaluated after every chunk, and the parameters (and balancer state)
+    with the lowest value are restored at the end."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "the device-mesh data axis is not yet ported (ROADMAP queue 1, parallel)")
+
+    def log(msg):
+        if logger is not None:
+            logger.print(msg)
+
+    stage, start_step = train_stage(model, config, terms, operator, device, resume, log)
+
+    loss_history: list = []
+    best_val = float("inf")
+    best_state = None
+    chunk = max(1, min(config.print_every, config.epochs))
+    done = start_step
+    t0 = time.time()
+    n_chunks = (max(config.epochs - start_step, 0) + chunk - 1) // chunk
+    for _ in range(n_chunks):
+        n = min(chunk, config.epochs - done)
+        trace = {k: v.tolist() for k, v in stage.run(n).items()}
+        done += n
+        loss_history.extend(trace["loss"])
+        elapsed = time.time() - t0
+        eta = elapsed / done * (config.epochs - done)
+        term_str = " | ".join(f"{name}: {trace[name][-1]:.2e}" for name in terms)
+        val_str = ""
+        if val_fn is not None:
+            v = float(val_fn())
+            if v < best_val:
+                best_val = v
+                best_state = {k: t.detach().clone()
+                              for k, t in model.state_dict().items()}
+                val_str = f" | val: {v:.2e} (best)"
+            else:
+                val_str = f" | val: {v:.2e} (best {best_val:.2e})"
+        log(
+            f"Epoch: {done}/{config.epochs} | Loss: {loss_history[-1]:.2e} | "
+            f"{term_str} | lr_scale: {trace['lr_scale'][-1]:.2e}"
+            f"{val_str} | Total: {elapsed:.1f}s | ETA: {eta:.1f}s"
+        )
+        if checkpoint_fn is not None:
+            checkpoint_fn(model, stage, done, loss_history)
+    if best_state is not None:
+        log(f"restoring best-validation params (val={best_val:.2e})")
+        model.load_state_dict(best_state)
+    return model, loss_history

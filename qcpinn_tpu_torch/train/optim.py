@@ -8,8 +8,8 @@ not used. ``adam`` (``torch.optim.Adam``, betas 0.9/0.999, eps 1e-8) has
 the same update as ``optax.adam`` and drives the bench step.
 
 :func:`make_optimizer` is the twin of the JAX ``make_optimizer``: an
-optax-style transformation (``init`` / ``update``) of clip and Adam with a
-constant or cosine learning rate, written out in torch so the update is
+optax-style transformation (``init`` / ``update``) of clip, coupled weight
+decay and Adam with a constant or cosine learning rate, written out in torch so the update is
 explicit and the plateau scale multiplies it as ``optim.scale_updates``
 does in JAX. Its step count lives on the device, the learning rate and the
 bias corrections are computed there in f32 (as optax does), and the
@@ -103,12 +103,16 @@ def make_optimizer(
     grad_clip: Optional[float] = None,
     schedule: str = "plateau",
     epochs: int = 0,
+    weight_decay: float = 0.0,
 ) -> GradientTransformation:
-    """Adam with optional global-norm clipping, as
-    ``optax.chain(clip_by_global_norm, adam(sched))``. For 'cosine' the
-    schedule is baked in; for 'plateau' the caller multiplies the update by
-    ``PlateauState.scale`` (:func:`scale_updates`). The JAX version's
-    ``weight_decay`` (the CV solver's) is not yet ported."""
+    """Adam with optional global-norm clipping and weight decay, as
+    ``optax.chain(clip_by_global_norm, add_decayed_weights, adam(sched))``.
+    For 'cosine' the schedule is baked in; for 'plateau' the caller
+    multiplies the update by ``PlateauState.scale`` (:func:`scale_updates`).
+
+    ``weight_decay`` is torch's *coupled* Adam decay (``grad += wd *
+    param`` after clipping and before the moments, not AdamW): the
+    reference CV solver's ``weight_decay=0.001`` (nn/CVPDESolver.py:73-75)."""
     sched = (cosine_decay_schedule(lr, max(epochs, 1)) if schedule == "cosine"
              else (lambda count: lr))
 
@@ -129,6 +133,8 @@ def make_optimizer(
         g = list(grads)
         if grad_clip is not None and grad_clip > 0:
             g, _ = clip_grads(g, grad_clip)
+        if weight_decay and weight_decay > 0:
+            g = torch._foreach_add(g, torch._foreach_mul(list(params), weight_decay))
         step = -sched(state.count)
         state.count.add_(1)
         torch._foreach_mul_(state.mu, B1)

@@ -310,7 +310,9 @@ def test_train_step_refuses_unported_modes():
     terms = {"res": TTerm(None, 1.0, 4, "residual")}
     opt = topt.make_optimizer(1e-3)
     with pytest.raises(NotImplementedError, match="hardware-fidelity modes"):
-        t_make_train_step(None, t_fwd, terms, opt, cfg, balancer="ema")
+        t_make_train_step(None, t_fwd, terms, opt, TConfig(gradient_mode="parameter-shift"))
+    with pytest.raises(NotImplementedError, match="hardware-fidelity modes"):
+        t_make_train_step(None, t_fwd, terms, opt, cfg, shots_apply=lambda X: X)
     with pytest.raises(NotImplementedError, match="hardware-fidelity modes"):
         t_make_train_step(None, t_fwd, terms, opt, TConfig(gradient_mode="spsa"))
     with pytest.raises(NotImplementedError, match="queue 1, parallel"):
@@ -343,8 +345,21 @@ def test_north_star_cli_shape():
     assert terms["res"].kind == "residual" and terms["res"].batch == 256
     assert isinstance(terms["res"].sampler, tdd.MixtureSampler)
     assert all(terms[k].batch == 85 and terms[k].weight == 10.0 for k in list(terms)[1:])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ns.build_model(ns.parse_args(["--solver", "classical"]), "cpu")
+    cfg, model, use_streams, _ = ns.build_model(ns.parse_args(["--solver", "classical"]),
+                                                "cpu")
+    assert type(model).__name__ == "ClassicalSolver" and not use_streams
+    assert cfg.classic_network == (3, 64, 1)
+
+
+def test_north_star_classical_run_smoke():
+    """``--solver classical``: the Hopfield baseline in one stage on the
+    forward-mode residual with its value terms fused (the JAX script's
+    choice), then the 20^3 evaluation."""
+    args = ns.parse_args("--solver classical --batch 12 --hidden 4 --chunk 2 "
+                         "--total-steps 4 --minutes 10".split())
+    r = ns.run(args, device="cpu")
+    assert (r["solver"], r["steps"], r["backend"]) == ("classical", 4, None)
+    assert r["losses_finite"] and np.isfinite([r["rel_l2_u"], r["rel_l2_r"]]).all()
 
 
 def test_north_star_run_smoke():

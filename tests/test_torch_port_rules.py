@@ -165,6 +165,30 @@ def test_new_entry_points_raise_without_cuda(monkeypatch):
         backends.make_fused_backend(DVCircuit(4, 1, "cascade"), "loop")
 
 
+def test_train_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """``cli.main``, ``train`` and the north-star classical run default to
+    the card and raise without CUDA, before any run directory is made."""
+    from qcpinn_tpu_torch import cli, north_star
+    from qcpinn_tpu_torch.config import QCPINNConfig
+    from qcpinn_tpu_torch.data import gaussian_pulse_samplers
+    from qcpinn_tpu_torch.models import ClassicalSolver
+    from qcpinn_tpu_torch.physics import diffusion_operator
+    from qcpinn_tpu_torch.train.loop import diffusion_terms, train
+
+    cfg = QCPINNConfig(solver="Classical", classic_network=(3, 4, 1), epochs=1)
+    model = ClassicalSolver(cfg, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["train", "--output-dir", str(tmp_path / "runs")])
+    assert not (tmp_path / "runs").exists()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train(model, cfg, diffusion_terms(gaussian_pulse_samplers(), 6), diffusion_operator)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        north_star.run(north_star.parse_args(["--solver", "classical"]))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ClassicalSolver(cfg)
+
+
 def test_loop_backend_on_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     eng = backends.make_fused_backend(DVCircuit(16, 1, "cross_mesh", seed=42), "loop")
