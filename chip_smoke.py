@@ -159,6 +159,26 @@ Phases, each printed as one JSON line; any failure exits non-zero:
 6e. north_star_classical ``north_star.run`` with --solver classical (the
                Hopfield baseline, one stage, 100 steps), the 20^3
                evaluation: every loss finite, the kernel counters at 0.
+6f. hw_modes   the hardware-fidelity modes: (a) the noisy readout
+               (HW_NOISE: depolarizing, readout and depth-aware per-gate)
+               through each engine with a kernel at its main path's value
+               rows (HW_ENGINES: block_kernel 12q, K1/K2/K2b; unrolled 8q and
+               10q, K3/K4/K4b on the warp and tile routes; loop 16q,
+               K5/K6/K6b) against the plain block engine with the same
+               channel: forward within the engine's limit, the gradients
+               of params and inputs within 2e-4 * max|ref|, then a
+               sampled readout (1024 shots) by the binomial law, every
+               kernel launched and no plain version (the kernels line's
+               ``hw_modes_launches``); (b) ``measure.sampled_z`` in a
+               captured step, 64 draws a replay, two replays each by the
+               law and different; (c) parameter-shift against autograd
+               (DV cascade 4q, cross_mesh 8q, atol 2e-4); (d) each
+               gradient mode's ``cli train`` step (DV cascade 4q) graphed
+               against eager: bit-equal over 5 steps with shots=None,
+               means within 3 standard errors over 20 steps with shots,
+               ms a step, launches and idle share; (e) the two JAX
+               records' SPSA commands (artifacts/spsa_ab_*.json) at 300
+               epochs, kernel counters 0.
 16. cluster_kernels the cluster pair (K1/K2 at 13-16 qubits) and K2b at 16
                qubits with B = 1536 stream rows and B = 425 value rows, and
                at 13 qubits with the same batches: against the plain
@@ -182,7 +202,7 @@ Every reduction row (phases 4, 8, 12, 16) has ``graph_ms``, torch.sum's
 ``library_graph_ms``, its bound and the launch floor. Then the run's
 seconds, the kernel summary line, the nvidia-smi line, and the result line.
 
-Seven measurements beside the smoke test:
+Measurements beside the smoke test:
 
     python3 chip_smoke.py --stage2-rate TREE   # the 16q stage-2 step of TREE's package
     python3 chip_smoke.py --loop-step-costs    # K5/K6 time per step kind at 16q
@@ -192,6 +212,8 @@ Seven measurements beside the smoke test:
     python3 chip_smoke.py --unrolled           # build, unrolled_shapes, unrolled_kernels
     python3 chip_smoke.py --sv-rates TREE      # TREE's K3/K4, their digests, 8q and 10q steps
     python3 chip_smoke.py --cli-train          # device, cli_train, north_star_classical
+    python3 chip_smoke.py --hw-modes           # the JAX SPSA records at 3000 epochs,
+                                               # parameter-shift at --shots 1024
 """
 
 import json
@@ -1508,6 +1530,385 @@ def cli_train_check():
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
 
 
+# -- the hardware-fidelity modes (phase hw_modes, --hw-modes) -----------------
+
+HW_NOISE = dict(depolarizing=0.02, readout=0.01, per_gate=0.002)
+# (tag, backend, n, B, forward limit, the kernels the engine launches): the
+# main paths' value-row batches, each engine's own forward limit
+HW_ENGINES = (
+    ("block_kernel_12q", "block_kernel", 12, 2 * (1024 // 3), FWD_TOL,
+     ("block_chain_fwd", "block_chain_bwd", "block_chain_reduce")),
+    ("unrolled_8q", "unrolled", 8, 2 * (1024 // 3), 3e-5,
+     ("unrolled_fwd_warp", "unrolled_bwd_warp", "unrolled_reduce")),
+    ("unrolled_10q", "unrolled", 10, LOOP_BATCHES[1], 3e-5,
+     ("unrolled_fwd_tile", "unrolled_bwd_tile", "unrolled_reduce")),
+    ("loop_16q", "loop", 16, LOOP_BATCHES[1], LOOP_FWD_TOL,
+     ("gate_loop_fwd", "gate_loop_bwd", "gate_loop_reduce")),
+)
+HW_SHOTS = 1024
+LAW_DRAWS = 64
+# the JAX records' commands (artifacts/spsa_ab_full.json, spsa_ab_split.json)
+# and their rel-L2 of u; a run within a factor 2 of JAX's is in its band
+HW_RECORDS = (
+    ("spsa", "artifacts/spsa_ab_full.json"),
+    ("spsa-split", "artifacts/spsa_ab_split.json"),
+)
+HW_SHORT_EPOCHS = 300
+HW_CLI_MODES = (  # (tag, extra flags of the DV cascade 4q run)
+    ("parameter-shift", ["--gradient-mode", "parameter-shift"]),
+    ("spsa", ["--gradient-mode", "spsa"]),
+    ("spsa-split", ["--gradient-mode", "spsa-split"]),
+    ("parameter-shift_shots256", ["--gradient-mode", "parameter-shift", "--shots", "256"]),
+    ("spsa_shots256", ["--gradient-mode", "spsa", "--shots", "256"]),
+)
+HW_SHOT_STEPS = 20  # steps of each sampled mode, graph against eager
+HW_FLAGS = ["--problem", "diffusion", "--solver", "DV", "--ansatz", "cascade",
+            "--num-qubits", "4", "--num-layers", "1", "--hidden-dim", "50",
+            "--batch-size", "64", "--lr", "5e-3", "--seed", "7"]
+
+
+def law(draws, z, shots):
+    """(worst |mean - z| over 4 sigma / sqrt(D), the variance over sigma^2
+    pooled over the elements) of D draws [D, ...] of each element, sigma^2 =
+    (1 - z^2) / S; elements with |z| = 1 (sigma 0) left out."""
+    d = draws.shape[0]
+    sigma2 = (1.0 - z.double() ** 2) / shots
+    keep = sigma2 > 1e-9
+    mean_err = (draws.double().mean(0) - z.double()).abs() / (4.0 * sigma2.sqrt() / d**0.5)
+    ratio = draws.double().var(0) / sigma2
+    return float(mean_err[keep].max()), float(ratio[keep].mean()), int(keep.sum())
+
+
+def hw_engine_rows(dev):
+    """Each engine with a kernel at its main path's value-row shapes, under
+    the noise channel (HW_NOISE) against the plain engine with the same
+    channel: forward within the engine's limit, the gradients of sum(z * g)
+    for params and inputs within 2e-4 * max|ref|, then a sampled readout of
+    HW_SHOTS shots against the exact noisy <Z>: whole counts, the mean
+    square error over sigma^2 within 10% of 1 (pooled over the B x n
+    elements, one draw each), no element 10 sigma off. Every kernel of the engine launched, no plain
+    version (the forward kernel in the sampled readout too); returns
+    (rows, the counters of all the engines' runs)."""
+    import torch
+
+    from qcpinn_tpu_torch.ops import NoiseModel, make_fused_backend
+    from qcpinn_tpu_torch.ops.block_fused import BlockFusedCircuit
+    from qcpinn_tpu_torch.ops.circuit import DVCircuit
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    noise = NoiseModel(**HW_NOISE)
+    rows, total = {}, {}
+    for tag, backend, n, b, tol, names in HW_ENGINES:
+        circ = DVCircuit(n, 1, "cross_mesh", seed=42)
+        eng = make_fused_backend(circ, backend, device=dev)
+        plain = BlockFusedCircuit(circ)
+        p0 = 0.3 * torch.randn(circ.num_params, generator=gen, device=dev)
+        x0 = torch.rand(b, n, generator=gen, device=dev) * math.pi
+        g = torch.randn(b, n, generator=gen, device=dev)
+        out = {}
+        reset_kernel_counters()
+        for which, e in (("kernel", eng), ("plain", plain)):
+            p, x = p0.clone().requires_grad_(True), x0.clone().requires_grad_(True)
+            z = e.apply(p, x, noise=noise)
+            gp, gx = torch.autograd.grad(torch.sum(z * g), (p, x))
+            out[which] = (z.detach(), gp, gx)
+            if which == "kernel":
+                counters = kernel_counters()
+        (z, gp, gx), (rz, rgp, rgx) = out["kernel"], out["plain"]
+        fwd_err = (z - rz).abs().max().item()
+        if not fwd_err <= tol:
+            raise SystemExit(f"hw_modes {tag}: noisy forward err {fwd_err} > {tol}")
+        bwd = {}
+        for k, a, r in (("params", gp, rgp), ("inputs", gx, rgx)):
+            e, scale = (a - r).abs().max().item(), r.abs().max().item()
+            if not e <= BWD_RTOL * scale:
+                raise SystemExit(f"hw_modes {tag}: noisy grad of {k} err {e} > "
+                                 f"{BWD_RTOL} * {scale}")
+            bwd[k] = e / scale
+        reset_kernel_counters()
+        with torch.no_grad():
+            s = eng.apply(p0, x0, shots=HW_SHOTS, key=gen, noise=noise)
+        sampled = kernel_counters()
+        sigma = torch.sqrt((1.0 - z.double() ** 2) / HW_SHOTS)
+        keep = sigma > 1e-6
+        r = ((s.double() - z.double()) / sigma)[keep]
+        ratio, worst = float((r**2).mean()), float(r.abs().max())
+        counts = (1.0 - s) * HW_SHOTS / 2.0
+        if not (torch.equal(counts, counts.round()) and 0.9 <= ratio <= 1.1
+                and worst <= 10.0):
+            raise SystemExit(f"hw_modes {tag}: sampled readout off its law: "
+                             f"worst {worst} sigma, mean square {ratio} sigma^2")
+        for c in (counters, sampled):
+            for k, v in c.items():
+                total[k] = total.get(k, 0) + v
+        for k in names:
+            key = next(c for c in counters if c.endswith("." + k))
+            ref = PLAIN_NAME.get(k, f"{k}_ref")
+            ref_key = next((c for c in counters if c.endswith("." + ref)), None)
+            # the sampled readout is a forward alone: names[0]
+            if counters[key] == 0 or (k == names[0] and sampled[key] == 0):
+                raise SystemExit(f"hw_modes {tag}: {k} not launched")
+            if ref_key and (counters[ref_key] or sampled[ref_key]):
+                raise SystemExit(f"hw_modes {tag}: the plain version {ref} ran")
+        rows[tag] = {
+            "backend": backend, "n_qubits": n, "batch": b, "noise": HW_NOISE,
+            "gate_counts": list(noise.bind(circ).gate_counts),
+            "fwd_max_abs_err": fwd_err, "fwd_tol": tol,
+            "bwd_max_err_over_scale": bwd, "bwd_tol": f"{BWD_RTOL}*max|ref|",
+            "sampled": {"shots": HW_SHOTS, "elements": int(keep.sum()),
+                        "worst_err_over_sigma": worst,
+                        "mean_square_err_over_sigma2": ratio},
+            "launches": {k: counters[next(c for c in counters if c.endswith("." + k))]
+                         for k in names},
+            "launches_sampled": {k: sampled[next(c for c in counters
+                                                 if c.endswith("." + k))]
+                                 for k in names}}
+        del out, eng, plain, z, gp, gx, rz, rgp, rgx, s
+        torch.cuda.empty_cache()
+    return rows, total
+
+
+def hw_sampled_z_graph(dev):
+    """``measure.sampled_z`` in a captured step: LAW_DRAWS draws of every
+    <Z_w> of an 8q cross_mesh state (B = 16) a replay, HW_SHOTS shots,
+    from the generator the graph registers. Two replays, each by the law
+    (every mean within 4 sigma / sqrt(D), the pooled variance within 25%),
+    and different from each other."""
+    import torch
+
+    from qcpinn_tpu_torch.ops import measure
+    from qcpinn_tpu_torch.ops.circuit import DVCircuit
+    from qcpinn_tpu_torch.train.loop import WARMUP_STEPS, CapturedStep
+
+    n, b = SV_QUBITS, 16
+    gen = torch.Generator(device=dev).manual_seed(5)
+    circ = DVCircuit(n, 1, "cross_mesh", seed=42)
+    p = 0.3 * torch.randn(circ.num_params, generator=gen, device=dev)
+    x = torch.rand(b, n, generator=gen, device=dev) * math.pi
+    with torch.no_grad():
+        states = circ.state(p.reshape(circ.layers, -1), x).repeat(LAW_DRAWS, 1)
+        z = measure.exact_z(states[:b], n)
+    step = CapturedStep(
+        lambda: measure.sampled_z(states, n, HW_SHOTS, gen).reshape(LAW_DRAWS, b, n), gen)
+    draws = [step().clone() for _ in range(WARMUP_STEPS + 2)]
+    if step.captured != 1 or step.replays != 2:
+        raise SystemExit("hw_modes sampled_z: no replays")
+    replays = draws[-2:]
+    row = {"shots": HW_SHOTS, "draws_per_replay": LAW_DRAWS, "batch": b, "n_qubits": n,
+           "replays": step.replays, "replays_differ": not torch.equal(*replays)}
+    for i, r in enumerate(replays):
+        worst, ratio, kept = law(r, z, HW_SHOTS)
+        if not (worst <= 1.0 and abs(ratio - 1.0) <= 0.25):
+            raise SystemExit(f"hw_modes sampled_z replay {i}: worst {worst}, ratio {ratio}")
+        row[f"replay{i}"] = {"worst_mean_err_over_4sigma_sqrtD": worst,
+                             "variance_over_sigma2": ratio, "elements": kept}
+    if not row["replays_differ"]:
+        raise SystemExit("hw_modes sampled_z: two replays drew the same samples")
+    return row
+
+
+def hw_parameter_shift(dev):
+    """``make_hw_apply`` with shots=None against autograd through
+    ``DVCircuit.apply``, on the card: DV cascade 4q and cross_mesh 8q (B =
+    16, the noise channel on), params and inputs within atol 2e-4."""
+    import torch
+
+    from qcpinn_tpu_torch.ops import NoiseModel
+    from qcpinn_tpu_torch.ops.circuit import DVCircuit
+    from qcpinn_tpu_torch.train.hardware_grad import evals_per_step, make_hw_apply
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    noise = NoiseModel(**HW_NOISE)
+    out = {}
+    for ansatz, n in (("cascade", 4), ("cross_mesh", 8)):
+        circ = DVCircuit(n, 1, ansatz, seed=42)
+        p = (0.3 * torch.randn(1, circ.num_params, generator=gen, device=dev)).requires_grad_()
+        x = (torch.rand(16, n, generator=gen, device=dev) * 2 - 1).requires_grad_()
+        g = torch.randn(16, n, generator=gen, device=dev)
+        hw = make_hw_apply(circ, None, noise=noise)
+        got = torch.autograd.grad(torch.sum(hw(p, x) * g), (p, x))
+        want = torch.autograd.grad(torch.sum(circ.apply(p, x, noise=noise) * g), (p, x))
+        errs = [(a - r).abs().max().item() for a, r in zip(got, want)]
+        if not max(errs) <= 2e-4:
+            raise SystemExit(f"hw_modes parameter-shift {ansatz} {n}q: {errs} > 2e-4")
+        out[f"{ansatz}_{n}q"] = {"params_max_abs_err": errs[0], "inputs_max_abs_err": errs[1],
+                                 "tol": 2e-4, "evals_per_step": evals_per_step(circ)}
+    return out
+
+
+def hw_cli_modes(dev):
+    """Each gradient mode's ``cli train`` step (DV cascade 4q, the JAX
+    records' flags) graphed against eager from the same seed: with
+    shots=None WARMUP_STEPS + 2 steps bit-equal (losses and parameters);
+    with shots HW_SHOT_STEPS steps whose mean losses agree within 3
+    standard errors. Then the graphed ms a step (10 replays) and a 3-step
+    profile: launches, device time, idle share."""
+    import torch
+
+    from qcpinn_tpu_torch import bench
+    from qcpinn_tpu_torch.train.loop import WARMUP_STEPS
+
+    st = statistics
+    out = {}
+    for tag, flags in HW_CLI_MODES:
+        sampled = "--shots" in flags
+        n_steps = HW_SHOT_STEPS if sampled else WARMUP_STEPS + 2
+        ref, got = CliStepper(HW_FLAGS + flags, dev, eager=True), CliStepper(HW_FLAGS + flags, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        l_ref = take_steps(ref, n_steps).tolist()
+        eager_ms = 1e3 * (time.perf_counter() - t0) / n_steps
+        l_got = take_steps(got, n_steps).tolist()
+        want = dict(ref.model.named_parameters())
+        bit_equal = l_got == l_ref and all(torch.equal(p, want[k])
+                                           for k, p in got.model.named_parameters())
+        row = {"steps": n_steps, "bit_equal": bit_equal, "loss_first": l_got[0],
+               "loss_last": l_got[-1], "eager_ms_per_step": eager_ms}
+        if sampled:
+            se = math.sqrt((st.pvariance(l_ref) + st.pvariance(l_got)) / n_steps)
+            gap = abs(st.fmean(l_got) - st.fmean(l_ref))
+            row.update({"mean_loss_graph": st.fmean(l_got), "mean_loss_eager": st.fmean(l_ref),
+                        "mean_gap_over_se": gap / se if se > 0 else 0.0})
+            if not (all(math.isfinite(v) for v in l_got) and gap <= 3.0 * se):
+                raise SystemExit(f"hw_modes cli {tag}: graph mean {st.fmean(l_got)} against "
+                                 f"eager {st.fmean(l_ref)} (se {se})")
+        elif not bit_equal:
+            raise SystemExit(f"hw_modes cli {tag}: graph not bit-equal to eager: "
+                             f"{l_got} against {l_ref}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(take_steps(got, GRAPH_TIME_STEPS)[-1])
+        graph_ms = 1e3 * (time.perf_counter() - t0) / GRAPH_TIME_STEPS
+        prof = bench.profile(got, graph_ms, steps=3, top=3)
+        prof["top_device_ms_per_step"] = [[name[:60], ms] for name, ms
+                                          in prof["top_device_ms_per_step"]]
+        row["graph"] = prof
+        out[tag] = row
+        del ref, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def record_jobs():
+    """(mode, argv, record) of the JAX records' SPSA commands: each record's
+    ``command`` with ``qcpinn_tpu_torch`` for ``qcpinn_tpu`` (the argv after
+    the module) and its own --metrics-json and --output-dir left out."""
+    import shlex
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    jobs = []
+    for mode, path in HW_RECORDS:
+        with open(os.path.join(here, path)) as f:
+            rec = json.load(f)
+        argv = shlex.split(rec["command"])[3:]
+        for flag in ("--metrics-json", "--output-dir"):
+            i = argv.index(flag)
+            del argv[i:i + 2]
+        jobs.append((mode, argv, rec))
+    return jobs
+
+
+def hw_record_runs(dev, epochs, jobs, out_root):
+    """``cli.main`` for each of ``jobs`` ((tag, argv, the JAX record or
+    None)) at ``epochs`` epochs: wall time, final loss, rel-L2 of u and r
+    (beside JAX's, with the ratio and whether it is within JAX's factor 2),
+    every kernel counter 0 (the CLI's circuit runs gate by gate)."""
+    import torch
+
+    from qcpinn_tpu_torch import cli
+
+    out = {}
+    for tag, argv, rec in jobs:
+        argv = list(argv)
+        if "--epochs" in argv:
+            argv[argv.index("--epochs") + 1] = str(epochs)
+        else:
+            argv += ["--epochs", str(epochs)]
+        metrics_path = os.path.join(out_root, f"hw_{tag}.json")
+        argv += ["--output-dir", out_root, "--run-name", f"hw_{tag}",
+                 "--metrics-json", metrics_path]
+        if "--no-plots" not in argv:
+            argv.append("--no-plots")
+        reset_kernel_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if cli.main(argv) != 0:
+            raise SystemExit(f"hw_modes run {tag}: exit code not 0")
+        seconds = time.perf_counter() - t0
+        counters = kernel_counters()
+        if any(counters.values()):
+            raise SystemExit(f"hw_modes run {tag}: kernels launched: {counters}")
+        with open(metrics_path) as f:
+            m = json.load(f)
+        if not all(math.isfinite(v) for v in [m["final_loss"], *m["metrics"].values()]):
+            raise SystemExit(f"hw_modes run {tag}: non-finite result {m}")
+        row = {"argv": argv, "epochs": epochs, "seconds": seconds,
+               "final_loss": m["final_loss"], "metrics": m["metrics"],
+               "trainable_params": m["trainable_params"]}
+        if rec is not None:
+            if m["trainable_params"] != rec["trainable_params"]:
+                raise SystemExit(f"hw_modes run {tag}: {m['trainable_params']} trainable "
+                                 f"parameters, the JAX record has {rec['trainable_params']}")
+            u, ju = m["metrics"]["rel_l2_u_percent"], rec["metrics"]["rel_l2_u_percent"]
+            row["jax"] = {"epochs": rec["config"]["epochs"], "final_loss": rec["final_loss"],
+                          "metrics": rec["metrics"]}
+            row["u_over_jax"] = u / ju
+            row["in_band"] = 0.5 * ju <= u <= 2.0 * ju
+        out[tag] = row
+    return out
+
+
+def hw_modes_phase(dev, smi):
+    """Phase ``hw_modes``: the noisy and sampled readouts through each
+    engine with a kernel (``hw_engine_rows``), ``sampled_z`` over replays of
+    a captured step, parameter-shift against autograd, each gradient mode's
+    ``cli train`` step graphed against eager, and short runs of the JAX
+    records' SPSA commands. Returns the kernels' launch counters of the
+    engine checks."""
+    import torch
+
+    rows, launches = hw_engine_rows(dev)
+    torch.cuda.empty_cache()
+    out_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "runs", "chip_smoke")
+    os.makedirs(out_root, exist_ok=True)
+    emit({"phase": "hw_modes", "noise": HW_NOISE, "engines": rows,
+          "sampled_z_graph": hw_sampled_z_graph(dev),
+          "parameter_shift": hw_parameter_shift(dev),
+          "cli_modes": hw_cli_modes(dev),
+          "records_short": hw_record_runs(dev, HW_SHORT_EPOCHS, record_jobs(), out_root),
+          "card": smi})
+    return launches
+
+
+def hw_modes_check():
+    """``--hw-modes``: the device phase's checks, then the JAX records' two
+    SPSA commands at their 3000 epochs and a parameter-shift run at --shots
+    1024 for 500 epochs (no kernel is built: the CLI path runs none)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import qcpinn_tpu_torch  # noqa: F401  (sets TF32 off)
+
+    t_start = time.perf_counter()
+    smi = nvidia_smi_line()
+    emit({"phase": "device", "name": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "allow_tf32": torch.backends.cuda.matmul.allow_tf32})
+    dev = torch.device("cuda")
+    out_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "runs", "chip_smoke")
+    os.makedirs(out_root, exist_ok=True)
+    emit({"phase": "hw_records", "card": smi,
+          "results": hw_record_runs(dev, 3000, record_jobs(), out_root)})
+    ps = ("parameter-shift_shots1024", ["train", *HW_FLAGS, "--gradient-mode",
+                                        "parameter-shift", "--shots", "1024",
+                                        "--print-every", "100"], None)
+    emit({"phase": "hw_parameter_shift_run", "card": smi,
+          "results": hw_record_runs(dev, 500, [ps], out_root)})
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
+
+
 def stage2_rate(tree: str):
     """``--stage2-rate TREE``: the 16q north-star stage-2 step on the loop
     engine with TREE's ``qcpinn_tpu_torch`` (a tree with
@@ -2512,6 +2913,8 @@ def main():
         return rates(sys.argv[2])
     if sys.argv[1:] == ["--cli-train"]:
         return cli_train_check()
+    if sys.argv[1:] == ["--hw-modes"]:
+        return hw_modes_check()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -2650,6 +3053,10 @@ def main():
     north_star_classical_phase(dev, smi)
     torch.cuda.empty_cache()
 
+    # -- 6f. the hardware-fidelity modes --------------------------------------
+    hw_launches = {k.rsplit(".", 1)[1]: v for k, v in hw_modes_phase(dev, smi).items()}
+    torch.cuda.empty_cache()
+
     # -- 7-10. the 16q north-star path through the gate-loop kernels ---------
     loop_results = loop_phases(dev, gen, card_peaks, smi,
                                ptxas_registers(built["gate_loop"][2]), floor)
@@ -2717,6 +3124,8 @@ def main():
             "by_shape": by_b,
         })
     kernels += loop_results + unrolled_results
+    for row in kernels:  # the launches of the hw_modes phase's engine checks
+        row["hw_modes_launches"] = hw_launches.get(row["name"], 0)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(smi, flush=True)

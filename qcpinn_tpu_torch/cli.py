@@ -12,14 +12,15 @@ directory. The DV solver's residual is the forward-mode operator
 (``physics/operators_fwd.py``), the Hopfield baseline's the reverse-mode
 one (``physics/operators.py``), which its batch coupling needs; the DV
 circuit runs gate by gate under nested forward AD, as in the JAX CLI, so
-no CUDA kernel of the package is on this path.
+no CUDA kernel of the package is on this path. ``--gradient-mode``
+(backprop, parameter-shift, spsa, spsa-split), ``--shots`` and the three
+``--noise-*`` flags are the hardware-fidelity modes (``train/loop.py``,
+``train/hardware_grad.py``, ``train/spsa.py``, ``ops/measure.py``).
 
 ``main(argv, device=None)`` runs on the card and raises without CUDA;
 ``device="cpu"`` runs on the CPU. Not yet ported, each raising
 ``NotImplementedError`` that names its ROADMAP item: ``--solver CV``,
-``--data-parallel``, the shot and gradient modes other than backprop and
-the noise flags of the DV solver, and the ``crystal`` and ``cz``
-subcommands.
+``--data-parallel``, and the ``crystal`` and ``cz`` subcommands.
 """
 
 from __future__ import annotations
@@ -70,18 +71,34 @@ def build_parser() -> argparse.ArgumentParser:
                    help="track a fixed 512-point analytic-solution validation "
                         "set every logging chunk and keep the best params seen")
     t.add_argument("--shots", type=int, default=None,
-                   help="shot-noise mode; ignored in backprop mode (logged)")
+                   help="shot-noise simulation mode (hardware fidelity); "
+                        "takes effect with --gradient-mode parameter-shift "
+                        "or spsa (backprop trains analytic, as the "
+                        "reference's AER mode)")
     t.add_argument("--gradient-mode", default="backprop",
-                   choices=["backprop", "parameter-shift", "spsa", "spsa-split"])
+                   choices=["backprop", "parameter-shift", "spsa", "spsa-split"],
+                   help="quantum gradient path (readme.md:166-171): "
+                        "backprop = analytic simulator; parameter-shift = "
+                        "shot-sampled shifted evaluations on value terms; "
+                        "spsa = 2-eval zeroth-order updates on the FULL "
+                        "pytree; spsa-split = SPSA on the quantum weights "
+                        "+ Adam on the classical partition (the "
+                        "reference's hardware recipe, "
+                        "cg-hqpinn/...:727-748)")
     t.add_argument("--loss-balancer", default="none",
                    choices=["none", "ema", "uncertainty"],
                    help="adaptive loss balancing: ema = EMAWeights "
                         "ratio-to-average normalization; uncertainty = "
                         "trainable homoscedastic log-variances replacing the "
-                        "static weights")
+                        "static weights. Requires --gradient-mode backprop")
     t.add_argument("--noise-depolarizing", type=float, default=0.0)
     t.add_argument("--noise-readout", type=float, default=0.0)
-    t.add_argument("--noise-per-gate", type=float, default=0.0)
+    t.add_argument("--noise-per-gate", type=float, default=0.0,
+                   help="depth-aware depolarizing rate applied per gate "
+                        "per touched wire: <Z_w> damps by (1-p)^(gate "
+                        "count on w), so error accumulates with circuit "
+                        "depth like the reference's FakeSherbrooke device "
+                        "noise (cg-hqpinn/...:183-196)")
     t.add_argument("--output-dir", default="runs")
     t.add_argument("--run-name", default=None)
     t.add_argument("--eval-grid", type=int, default=20)
@@ -249,10 +266,6 @@ def cmd_train(args, device=None) -> int:
     if args.data_parallel:
         raise NotImplementedError(
             "--data-parallel is not yet ported (ROADMAP queue 1, parallel)")
-    if args.gradient_mode != "backprop":
-        raise NotImplementedError(
-            f"--gradient-mode {args.gradient_mode} is not yet ported "
-            "(ROADMAP queue 1, hardware-fidelity modes)")
     cfg = make_config(args)
     model = make_model(cfg, device)
     logger = Logging(cfg.output_dir, cfg.run_name or f"{cfg.solver}-{cfg.q_ansatz}-{cfg.problem}")

@@ -2,7 +2,8 @@
 ``nn.Module``: classical encoder -> quantum circuit -> decoder.
 
   pre:  Linear(in, hidden) Tanh Linear(n_qubits)   (raw output = the angles)
-  q:    DVCircuit (any ansatz, ``config.encoding``), exact <Z_w> readout
+  q:    DVCircuit (any ansatz, ``config.encoding``), <Z_w> readout: exact,
+        through the config's noise channel, or shot-sampled
   post: Linear(n_qubits, hidden) Tanh Linear(out)
 
 Unlike :class:`DVFourierSolver`, the angles are the encoder's raw output
@@ -10,28 +11,27 @@ Unlike :class:`DVFourierSolver`, the angles are the encoder's raw output
 angles alone. ``encode``/``head``/``qblock``/``use_fused`` have
 ``DVFourierSolver``'s signatures, so the tangent-stream residual
 (``physics/streams.py``) and ``make_train_step`` take either model.
-``model(x)`` is the JAX package's ``model.apply(params, x)``.
+``model(x)`` is the JAX package's ``model.apply(params, x)``;
+``hw_apply_fn(shots)`` its hardware-fidelity forward (parameter-shift
+gradients, ``train/hardware_grad.py``).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
 
 from .. import resolve_device
 from ..config import QCPINNConfig
-from ..ops import DVCircuit, make_fused_backend
+from ..ops import DVCircuit, NoiseModel, make_fused_backend
 from . import nn_core as nc
 
 
 class DVSolver(nn.Module):
     def __init__(self, config: QCPINNConfig, device=None):
         super().__init__()
-        if (config.noise_depolarizing or config.noise_readout
-                or config.noise_per_gate):
-            raise NotImplementedError(
-                "noise models are not yet ported "
-                "(ROADMAP queue 1, hardware-fidelity modes)")
         device = resolve_device(device)
         self.config = config
         self.n = config.num_qubits
@@ -48,6 +48,10 @@ class DVSolver(nn.Module):
         self.pre = nc.mlp_init((in_dim, hidden, self.n), generator)
         self.q = nn.Parameter(self.circuit.init_params(generator, device="cpu"))
         self.post = nc.mlp_init((self.n, hidden, out_dim), generator)
+        self.noise = None
+        if config.noise_depolarizing or config.noise_readout or config.noise_per_gate:
+            self.noise = NoiseModel(config.noise_depolarizing, config.noise_readout,
+                                    config.noise_per_gate).bind(self.circuit)
         self.to(device)
         self._fused = None
 
@@ -75,8 +79,33 @@ class DVSolver(nn.Module):
     def head(self, feat: torch.Tensor) -> torch.Tensor:
         return nc.mlp_apply(self.post, feat)
 
-    def forward(self, x: torch.Tensor, detach_quantum: bool = False) -> torch.Tensor:
-        z = self.qblock.apply(self.q, self.encode(x))
+    def hw_apply_fn(self, shots: Optional[int]):
+        """``apply(x, key) -> [B, out]`` whose quantum block takes the
+        parameter-shift estimator (train/hardware_grad.py): shot-sampled
+        readouts (``key`` a ``torch.Generator``; unused when ``shots`` is
+        None), gradients from shifted evaluations (the reference's
+        diff_method="parameter-shift", nn/DVQuantumLayer.py:140) into the
+        quantum weights and through the circuit's inputs into the encoder.
+        The config's noise channel rides along, as in ``forward``."""
+        from ..train.hardware_grad import make_hw_apply
+
+        hw = make_hw_apply(self.circuit, shots, noise=self.noise)
+
+        def apply(x: torch.Tensor, key: Optional[torch.Generator] = None) -> torch.Tensor:
+            return self.head(hw(self.q, self.encode(x), key))
+
+        return apply
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        *,
+        shots: Optional[int] = None,
+        key: Optional[torch.Generator] = None,
+        detach_quantum: bool = False,
+    ) -> torch.Tensor:
+        z = self.qblock.apply(self.q, self.encode(x), shots=shots, key=key,
+                              noise=self.noise)
         if detach_quantum:
             # two-phase head tuning: the decoder trains on a frozen readout
             z = z.detach()

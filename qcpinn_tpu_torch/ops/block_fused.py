@@ -223,10 +223,17 @@ class BlockFusedCircuit:
             params, sv.encode_angle_product(x * self.circuit.input_scale, self.circuit.n)
         )
 
-    def apply(self, params, x):
+    def apply(self, params, x, *, shots=None, key=None, noise=None):
+        """``[B, F] -> [B, n]`` ``<Z_w>``, with the readout modes of
+        ``DVCircuit.apply``."""
         from . import measure
+        from . import statevector as sv
 
-        return measure.exact_z(self.state(params, x), self.circuit.n)
+        measure.check_key(shots, key)
+        if noise is not None:
+            noise = noise.bind(self.circuit)
+        z = sv.z_expvals(self.state(params, x), self.circuit.n)
+        return measure.read_z(z, shots=shots, key=key, noise=noise)
 
-    def __call__(self, params, x):
-        return self.apply(params, x)
+    def __call__(self, params, x, **kw):
+        return self.apply(params, x, **kw)

@@ -103,12 +103,26 @@ class DVCircuit:
     def state(self, params: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         return self.evolve(params, self.prepare(x))
 
-    def apply(self, params: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        """``[B, F] -> [B, n]`` per-wire Z expectations."""
-        return measure.exact_z(self.state(params, x), self.n)
+    def apply(
+        self,
+        params: torch.Tensor,
+        x: torch.Tensor,
+        *,
+        shots: Optional[int] = None,
+        key: Optional[torch.Generator] = None,
+        noise: Optional[measure.NoiseModel] = None,
+    ) -> torch.Tensor:
+        """``[B, F] -> [B, n]`` per-wire Z expectations: exact, through
+        ``noise``, and sampled with ``shots`` draws from the generator
+        ``key`` when ``shots`` is set."""
+        measure.check_key(shots, key)
+        if noise is not None:
+            noise = noise.bind(self)  # depth-aware gate counts
+        z = sv.z_expvals(self.state(params, x), self.n)
+        return measure.read_z(z, shots=shots, key=key, noise=noise)
 
-    def __call__(self, params, x):
-        return self.apply(params, x)
+    def __call__(self, params, x, **kw):
+        return self.apply(params, x, **kw)
 
     def dense_unitary(self, params) -> np.ndarray:
         """Test oracle: the full circuit unitary (ansatz layers + epilogue),

@@ -774,10 +774,14 @@ class LoopFusedCircuit:
             )
         return self._run(params, prepared)
 
-    def apply(self, params, x):
-        """``[B, F] -> [B, n]`` exact ``<Z_w>`` (shots and noise are not yet
-        ported: ROADMAP queue 1, hardware-fidelity modes)."""
-        return measure.exact_z(self.state(params, x), self.circuit.n)
+    def apply(self, params, x, *, shots=None, key=None, noise=None):
+        """``[B, F] -> [B, n]`` ``<Z_w>``, with the readout modes of
+        ``DVCircuit.apply``."""
+        measure.check_key(shots, key)
+        if noise is not None:
+            noise = noise.bind(self.circuit)
+        z = sv.z_expvals(self.state(params, x), self.circuit.n)
+        return measure.read_z(z, shots=shots, key=key, noise=noise)
 
-    def __call__(self, params, x):
-        return self.apply(params, x)
+    def __call__(self, params, x, **kw):
+        return self.apply(params, x, **kw)

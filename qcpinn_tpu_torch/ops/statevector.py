@@ -132,6 +132,25 @@ def z_expvals(state: torch.Tensor, n: int) -> torch.Tensor:
     return probs @ z_sign(n, state.device)
 
 
+@functools.lru_cache(maxsize=32)
+def _parity_sign_vector(n: int) -> np.ndarray:
+    """``[2^n]`` float32 vector with entry s = (-1)^popcount(s): the
+    eigenvalues of the global Z⊗...⊗Z observable."""
+    idx = np.arange(1 << n, dtype=np.int64)
+    pop = np.zeros_like(idx)
+    for w in range(n):
+        pop += (idx >> w) & 1
+    return (1.0 - 2.0 * (pop % 2)).astype(np.float32)
+
+
+def global_z_expval(state: torch.Tensor, n: int) -> torch.Tensor:
+    """``<Z⊗Z⊗...⊗Z>``: ``[B]`` float32, the global-parity observable the
+    crystal-growth pipeline reads out
+    (hybrid_qpinn_2dcrystal_ibmtest.py:133-135, SparsePauliOp 'Z'*n)."""
+    probs = (state * torch.conj(state)).real.to(RDTYPE)
+    return probs @ host_const(_parity_sign_vector(n), state.device, RDTYPE)
+
+
 def encode_angle(state: torch.Tensor, n: int, x: torch.Tensor) -> torch.Tensor:
     """AngleEmbedding with rotation='X' (nn/DVQuantumLayer.py:182):
     ``RX(x_w)`` on wire w, batched over samples."""

@@ -53,7 +53,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from . import cuda_build, gates
+from . import cuda_build, gates, measure
 from . import loop_kernel as lk
 from .block_kernel import SMEM_MAX
 from . import statevector as sv
@@ -823,14 +823,15 @@ class FusedCircuit:
         return torch.complex(*self._planes(params, x))
 
     def apply(self, params, x, *, shots=None, key=None, noise=None):
-        """``[B, F] -> [B, n]`` exact ``<Z_w>``: probabilities times the
-        sign matrix."""
-        if shots is not None or noise is not None:
-            raise NotImplementedError(
-                "shot sampling and noise models are not yet ported "
-                "(ROADMAP queue 1, hardware-fidelity modes)")
+        """``[B, F] -> [B, n]`` ``<Z_w>``: probabilities times the sign
+        matrix, then the readout modes of ``DVCircuit.apply`` (the noise
+        channel before the sampler, as JAX's inline sampler has it)."""
+        measure.check_key(shots, key)
+        if noise is not None:
+            noise = noise.bind(self.circuit)
         yr, yi = self._planes(params, x)
-        return (yr * yr + yi * yi) @ self.constants(x.device).sign
+        z = (yr * yr + yi * yi) @ self.constants(x.device).sign
+        return measure.read_z(z, shots=shots, key=key, noise=noise)
 
     def __call__(self, params, x, **kw):
         return self.apply(params, x, **kw)

@@ -1,12 +1,15 @@
 """Physics-informed training (port of qcpinn_tpu/train/loop.py):
-``TermSpec``, ``diffusion_terms``, ``make_train_step`` in backprop mode
-with the loss balancers, ``inject_balancer_params``, ``make_val_fn`` and
-the driver ``train``.
+``TermSpec``, ``diffusion_terms``, ``make_train_step`` with the loss
+balancers and the gradient modes (backprop, parameter-shift on
+shot-sampled value terms, SPSA and the split SPSA/Adam update),
+``inject_balancer_params``, ``make_val_fn`` and the training loop ``train``.
 
 One step: sample every term's points -> forward -> PDE residual (the
 tangent-stream ``residual_fn`` or a generic ``operator``) -> weighted MSE
 (or a balancer's combination) -> grad -> clip + decay + Adam
-(``train/optim.py``) -> plateau scheduler.
+(``train/optim.py``) -> plateau scheduler; in the SPSA modes the update is
+``train/spsa.py``'s. Every random draw of a step (the points, the shots,
+SPSA's perturbation) comes from the step's generator.
 
 The JAX package compiles the step and scans a chunk of steps in one
 dispatch (``jax.jit`` of ``lax.scan``). On the card the port captures one
@@ -17,10 +20,8 @@ runs it, and on the card a caller that compares against it calls it
 directly. The host waits on the device only when the caller reads a
 metric (``train`` reads each chunk's trace once).
 
-Not ported yet: SPSA and parameter-shift gradient modes and shot-sampled
-value terms (ROADMAP queue 1, hardware-fidelity modes), and the
-device-mesh data axis (queue 1, parallel). Each raises
-``NotImplementedError``.
+Not ported yet: the device-mesh data axis (ROADMAP queue 1, parallel),
+which raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -36,8 +37,10 @@ from .. import resolve_device
 from ..bridge import params_from_jax
 from . import losses as L
 from . import optim
+from .spsa import SPSAConfig, spsa_split_step, spsa_step, split_params
 
 WARMUP_STEPS = 3  # eager steps before a capture (CapturedStep)
+GRADIENT_MODES = ("backprop", "parameter-shift", "spsa", "spsa-split")
 # the sample stream's seed is the config's plus this, so that it is not the
 # stream the model's initial weights were drawn from
 SAMPLE_SEED_OFFSET = 1_000_003
@@ -110,6 +113,7 @@ def make_train_step(
     mesh=None,
     residual_fn: Optional[Callable] = None,
     shots_apply: Optional[Callable] = None,
+    quantum_keys: Tuple[str, ...] = ("q",),
     fuse_value_terms: bool = False,
     balancer: str = "none",
 ):
@@ -120,7 +124,29 @@ def make_train_step(
     ``residual_fn(X) -> (u, residual)`` is given it replaces the operator
     for 'residual' terms (the tangent-stream residuals). With
     ``fuse_value_terms`` every value term goes through ONE ``model_apply``
-    on the concatenated points.
+    on the concatenated points (never with ``shots_apply``).
+
+    ``shots_apply(X, key) -> [B, out]`` replaces ``model_apply`` for 'value'
+    terms: the hardware-fidelity forward (shot-sampled, e.g. a solver's
+    ``hw_apply_fn`` with its parameter-shift backward), one fresh draw from
+    the step's generator a term. Residual terms always run the exact
+    simulator: a state-derivative residual is not a hardware observable,
+    and the reference's hardware stages train data and boundary losses only
+    (readme.md:166-171).
+
+    ``config.gradient_mode == "spsa"`` replaces the gradient step by a
+    2-evaluation SPSA estimate of the whole weighted loss (train/spsa.py),
+    applied to every trainable tensor; ``"spsa-split"`` perturbs only the
+    quantum tensors (first name component in ``quantum_keys``) while the
+    classical ones take ``optimizer`` steps from a backprop gradient with
+    the quantum block held fixed (cg-hqpinn/...16q_effective.py:484-512,
+    :727-748); ``optimizer``'s state then covers the classical tensors
+    only, and ``model_apply`` is the model module. In both the plateau
+    scale modulates the gains (``lr_scale``); in 'spsa' the clip and decay
+    of the optimizer do not apply, in 'spsa-split' they apply to the
+    classical partition. The step counter k of the decaying gains is the
+    optimizer state's device count plus one (in 'spsa' the step counts it
+    there itself).
 
     ``balancer`` selects the adaptive loss balancing (train/losses.py),
     whose tensors ``inject_balancer_params`` attaches to the model (here
@@ -145,15 +171,15 @@ def make_train_step(
         raise ValueError(
             f"unknown balancer {balancer!r}; have none, ema, uncertainty"
         )
-    if config.gradient_mode != "backprop":
-        raise NotImplementedError(
-            f"gradient_mode {config.gradient_mode!r} is not yet ported "
-            "(ROADMAP queue 1, hardware-fidelity modes)"
-        )
-    if shots_apply is not None:
-        raise NotImplementedError(
-            "shot-sampled value terms are not yet ported "
-            "(ROADMAP queue 1, hardware-fidelity modes)"
+    if config.gradient_mode not in GRADIENT_MODES:
+        raise ValueError(f"unknown gradient_mode {config.gradient_mode!r}; "
+                         f"have {GRADIENT_MODES}")
+    use_spsa = config.gradient_mode == "spsa"
+    use_split = config.gradient_mode == "spsa-split"
+    if balancer != "none" and (use_spsa or use_split):
+        raise ValueError(
+            "adaptive balancers need gradient_mode='backprop' (SPSA "
+            "perturbs the balancer state leaves)"
         )
     if mesh is not None:
         raise NotImplementedError(
@@ -168,9 +194,12 @@ def make_train_step(
     names = tuple(terms.keys())
     use_plateau = config.scheduler == "plateau"
     value_names = tuple(n for n in names if terms[n].kind != "residual")
-    fuse_values = fuse_value_terms and len(value_names) > 1
+    fuse_values = fuse_value_terms and shots_apply is None and len(value_names) > 1
+    spsa_cfg = SPSAConfig(a=config.lr)
+    if use_split:
+        names_of = {id(p): n for n, p in model_apply.named_parameters()}
 
-    def loss_fn(batches):
+    def loss_fn(batches, generator):
         per_term = {}
         for name in names:
             if fuse_values and name in value_names:
@@ -181,6 +210,8 @@ def make_train_step(
                     _, pred = residual_fn(X)
                 else:
                     _, pred = operator(model_apply, X)
+            elif shots_apply is not None:
+                pred = shots_apply(X, generator)
             else:
                 pred = model_apply(X)
             per_term[name] = L.mse(pred, y)
@@ -208,21 +239,41 @@ def make_train_step(
     def step_fn(params: Sequence[torch.Tensor], opt_state, sched, generator):
         batches = {n: terms[n].sampler.sample(generator, terms[n].batch)
                    for n in names}
-        loss, per_term, new_ema = loss_fn(batches)
-        grads = torch.autograd.grad(loss, list(params), allow_unused=True)
-        # a parameter the loss does not reach (the quantum block while it
-        # is zeroed) gets a zero gradient, as in JAX
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(params, grads)]
-        updates, opt_state = optimizer.update(grads, opt_state, params)
-        if use_plateau:
-            updates = optim.scale_updates(updates, sched.scale)
-        optim.apply_updates(params, updates)
-        if new_ema is not None:
-            # the EMA state follows its own rule, never the optimizer
-            with torch.no_grad():
-                for k, buf in ema.items():
-                    buf.copy_(new_ema[k])
+        lr_scale = sched.scale if use_plateau else 1.0
+        if use_spsa or use_split:
+            # per-term metrics ride the SPSA evaluations (has_aux): no extra
+            # loss evaluation beyond the mode's own
+            def terms_loss(g):
+                total, per, _ = loss_fn(batches, g)
+                return total, per
+
+            k = opt_state.count.to(torch.float32) + 1.0
+            if use_spsa:
+                _, loss, per_term = spsa_step(terms_loss, params, k, generator, spsa_cfg,
+                                              has_aux=True, lr_scale=lr_scale)
+                with torch.no_grad():
+                    opt_state.count.add_(1)
+            else:
+                named = {names_of[id(p)]: p for p in params}
+                _, opt_state, loss, per_term = spsa_split_step(
+                    terms_loss, named, k, generator, spsa_cfg, optimizer, opt_state,
+                    quantum_keys=quantum_keys, has_aux=True, lr_scale=lr_scale)
+        else:
+            loss, per_term, new_ema = loss_fn(batches, generator)
+            grads = torch.autograd.grad(loss, list(params), allow_unused=True)
+            # a parameter the loss does not reach (the quantum block while
+            # it is zeroed) gets a zero gradient, as in JAX
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(params, grads)]
+            updates, opt_state = optimizer.update(grads, opt_state, params)
+            if use_plateau:
+                updates = optim.scale_updates(updates, sched.scale)
+            optim.apply_updates(params, updates)
+            if new_ema is not None:
+                # the EMA state follows its own rule, never the optimizer
+                with torch.no_grad():
+                    for k, buf in ema.items():
+                        buf.copy_(new_ema[k])
         loss = loss.detach()
         if use_plateau:
             sched = optim.plateau_update(
@@ -357,7 +408,7 @@ class CapturedStep:
 
 @dataclasses.dataclass
 class Stage:
-    """One Adam run over a model's trainable tensors: the optimizer and
+    """One training run over a model's trainable tensors: the optimizer and
     plateau state, the sample stream, and ``make_train_step``'s two steps.
     ``run(n)`` takes n steps through ``run_steps`` (on the card, one
     captured CUDA graph replayed a step) and returns the metric trace;
@@ -412,7 +463,12 @@ def train_stage(
     "sched", "rng", "step"}, as ``utils.checkpoint.load_checkpoint``'s
     bundle gives them, any of them absent or None) restores that state.
     Value terms are fused into one model call unless the model couples the
-    batch (``batch_coupled``)."""
+    batch (``batch_coupled``) or a shot-sampled forward serves them. The
+    gradient mode picks that forward (``parameter-shift``: the model's
+    ``hw_apply_fn(config.shots)``; the SPSA modes with ``shots``: the DV
+    solver's sampled readout) and, for ``spsa-split``, an optimizer over the
+    classical tensors alone (the model's ``quantum_param_keys``, default
+    ``q``, name the quantum ones)."""
     device = resolve_device(device)
     on = next(model.parameters()).device
     if on.type != device.type or device.index not in (None, on.index):
@@ -437,10 +493,24 @@ def train_stage(
     if resume.get("rng") is not None:
         gen.set_state(resume["rng"])
     params = [p for p in model.parameters() if p.requires_grad]
-    opt_state = optimizer.init(params)
+    quantum_keys = tuple(getattr(model, "quantum_param_keys", ("q",)))
+    stepped = params
+    if config.gradient_mode == "spsa-split":
+        # the optimizer covers only the classical partition: SPSA owns the
+        # quantum tensors (cg-hqpinn/...16q_effective.py:700-748)
+        q_part, c_part = split_params(
+            {n: p for n, p in model.named_parameters() if p.requires_grad}, quantum_keys)
+        if not q_part:
+            raise ValueError(
+                "gradient_mode='spsa-split' needs quantum parameters "
+                f"(top-level key(s) {quantum_keys}); the "
+                f"{config.solver} solver has none — use 'backprop' or 'spsa'"
+            )
+        stepped = list(c_part.values())
+    opt_state = optimizer.init(stepped)
     if resume.get("opt_state") is not None:
         saved = resume["opt_state"]
-        if [tuple(m.shape) for m in saved.mu] != [tuple(p.shape) for p in params]:
+        if [tuple(m.shape) for m in saved.mu] != [tuple(p.shape) for p in stepped]:
             raise ValueError("the saved optimizer state does not fit the model's "
                              "trainable tensors")
         opt_state = optim.AdamState(saved.count.to(on), [m.to(on) for m in saved.mu],
@@ -448,13 +518,44 @@ def train_stage(
     sched = optim.plateau_init(on)
     if resume.get("sched") is not None:
         sched = optim.PlateauState(*(t.to(on) for t in resume["sched"]))
-    if config.shots is not None and config.gradient_mode == "backprop":
+    # hardware-fidelity gradient modes (readme.md:166-171): simulator =
+    # backprop on analytic expectations; hardware = parameter-shift on
+    # shot-sampled measurements; SPSA = 2-eval zeroth order
+    shots_apply = None
+    if config.gradient_mode == "parameter-shift":
+        if not hasattr(model, "hw_apply_fn"):
+            raise ValueError(
+                "gradient_mode='parameter-shift' needs a solver with a "
+                "hardware apply (DVSolver.hw_apply_fn); CV/Classical "
+                "solvers train with backprop or spsa"
+            )
+        shots_apply = model.hw_apply_fn(config.shots)
+        log(f"parameter-shift gradients on value terms (shots={config.shots}); "
+            "residual terms use the exact simulator (hardware stages are "
+            "data/boundary-only, as in the reference)")
+    elif config.gradient_mode in ("spsa", "spsa-split"):
+        if config.shots is not None:
+            if config.solver == "DV":
+                def shots_apply(X, key):
+                    return model(X, shots=config.shots, key=key)
+            else:
+                log("shots apply only to the DV solver's measurements; "
+                    "SPSA runs on the analytic forward")
+        if config.gradient_mode == "spsa-split":
+            log(f"split updates: SPSA (a={config.lr}) on quantum leaves "
+                f"{quantum_keys}, Adam on the classical partition "
+                f"(the reference's hardware recipe); shots={config.shots}")
+        else:
+            log(f"SPSA updates on the FULL pytree (a={config.lr}); "
+                f"shots={config.shots}")
+    elif config.shots is not None:
         log(f"shots={config.shots} ignored: backprop mode trains on analytic "
             "expectations (the reference's AER semantics — 'Ignored in AER "
             "analytic mode'); use gradient_mode='parameter-shift' or 'spsa' "
             "for shot-noise training")
     step_fn, run_steps = make_train_step(
-        model, operator, terms, optimizer, config,
+        model, operator, terms, optimizer, config, shots_apply=shots_apply,
+        quantum_keys=quantum_keys,
         fuse_value_terms=not getattr(model, "batch_coupled", False),
         balancer=balancer,
     )

@@ -115,8 +115,6 @@ def test_flags_match_the_jax_cli():
 @pytest.mark.parametrize("argv,match", [
     (["train", "--solver", "CV"], "the CV solver"),
     (["train", "--data-parallel"], "parallel"),
-    (["train", "--gradient-mode", "spsa"], "hardware-fidelity modes"),
-    (["train", "--noise-depolarizing", "0.1"], "hardware-fidelity modes"),
     (["crystal", "--spsa-steps", "5"], "crystal and SI-gated"),
     (["cz", "--phase", "pretrain", "--data", "x"], "Czochralski flagship"),
 ])
@@ -125,6 +123,34 @@ def test_unported_options_raise(argv, match, tmp_path):
     with pytest.raises(NotImplementedError, match=match):
         cli.main([*argv, *out], device="cpu")
     assert not os.path.exists(tmp_path / "out")  # refused before any run directory
+
+
+JAX_METRICS_KEYS = {"command", "config", "metrics", "final_loss", "trainable_params"}
+
+
+@pytest.mark.parametrize("flags", [
+    ["--gradient-mode", "parameter-shift", "--shots", "256"],
+    ["--gradient-mode", "spsa"],
+    ["--gradient-mode", "spsa-split"],
+    ["--noise-per-gate", "0.01"],
+])
+def test_hardware_modes_run(flags, tmp_path):
+    """The hardware-fidelity modes through ``cli train`` on the CPU: a few
+    epochs each, the metrics JSON with the JAX CLI's keys (the set its
+    records in artifacts/spsa_ab_*.json hold), the mode's log line."""
+    m = _run(tmp_path, *flags, "--epochs", "3")
+    with open(os.path.join(os.path.dirname(__file__), "..", "artifacts",
+                           "spsa_ab_split.json")) as f:
+        assert set(json.load(f)) <= JAX_METRICS_KEYS == set(m)
+    assert math.isfinite(m["final_loss"])
+    assert all(math.isfinite(v) for v in m["metrics"].values())
+    assert m["config"]["gradient_mode"] == (flags[1] if flags[0] == "--gradient-mode"
+                                           else "backprop")
+    log = (_run_dir(tmp_path) / "output.log").read_text()
+    want = {"parameter-shift": "parameter-shift gradients on value terms (shots=256)",
+            "spsa": "SPSA updates on the FULL pytree (a=0.005); shots=None",
+            "spsa-split": "split updates: SPSA (a=0.005) on quantum leaves ('q',)"}
+    assert want.get(flags[1], "Epoch: 3/3 | Loss: ") in log and "Epoch: 3/3 | Loss: " in log
 
 
 def test_train_refuses_unknown_flags():

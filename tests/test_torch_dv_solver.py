@@ -67,8 +67,10 @@ def test_forward_and_grads_match_jax(backend):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="hardware-fidelity modes"):
-        TSolver(TConfig(num_qubits=3, noise_depolarizing=0.1), device="cpu")
+    # the noise fields build the channel, bound to the circuit's gate counts
+    noisy = TSolver(TConfig(num_qubits=3, noise_depolarizing=0.1, noise_per_gate=0.01),
+                    device="cpu")
+    assert noisy.noise.depolarizing == 0.1 and len(noisy.noise.gate_counts) == 3
     tm = TSolver(TConfig(num_qubits=3), device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):
         tm.use_fused("pallas")

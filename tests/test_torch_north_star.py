@@ -309,12 +309,11 @@ def test_train_step_refuses_unported_modes():
     cfg = TConfig(num_qubits=4)
     terms = {"res": TTerm(None, 1.0, 4, "residual")}
     opt = topt.make_optimizer(1e-3)
-    with pytest.raises(NotImplementedError, match="hardware-fidelity modes"):
-        t_make_train_step(None, t_fwd, terms, opt, TConfig(gradient_mode="parameter-shift"))
-    with pytest.raises(NotImplementedError, match="hardware-fidelity modes"):
-        t_make_train_step(None, t_fwd, terms, opt, cfg, shots_apply=lambda X: X)
-    with pytest.raises(NotImplementedError, match="hardware-fidelity modes"):
-        t_make_train_step(None, t_fwd, terms, opt, TConfig(gradient_mode="spsa"))
+    with pytest.raises(ValueError, match="unknown gradient_mode"):
+        t_make_train_step(None, t_fwd, terms, opt, TConfig(gradient_mode="adjoint"))
+    with pytest.raises(ValueError, match="adaptive balancers need"):
+        t_make_train_step(None, t_fwd, terms, opt, TConfig(gradient_mode="spsa"),
+                          balancer="ema")
     with pytest.raises(NotImplementedError, match="queue 1, parallel"):
         t_make_train_step(None, t_fwd, terms, opt, cfg, mesh=object())
     with pytest.raises(ValueError, match="balancer"):

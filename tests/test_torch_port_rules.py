@@ -342,3 +342,61 @@ def test_warp_route_takes_the_cta_size_that_keeps_most_warps(monkeypatch):
     assert sk.warp_config(dev, 8, 25, 2, 2, 682)[::2] == (4, 171)
     resident.update({8: 2, 4: 4})  # 16 warps either way: the larger CTA
     assert sk.warp_config(dev, 8, 25, 2, 2, 6144)[::2] == (8, 264)
+
+
+HW_MODULES = ("ops.measure", "train.hardware_grad", "train.spsa", "train.staged",
+              "train.lbfgs")
+# wait for the Czochralski flagship (ROADMAP queue 1, item 3)
+CZ_NAMES = {"make_hw_apply_cz", "evals_per_step_cz"}
+
+
+def _public(mod):
+    import inspect
+
+    return {k for k, v in vars(mod).items() if not k.startswith("_")
+            and (inspect.isfunction(v) or inspect.isclass(v))
+            and v.__module__ == mod.__name__}
+
+
+def test_hardware_modules_have_the_jax_names():
+    import importlib
+
+    for name in HW_MODULES:
+        want = _public(importlib.import_module(f"qcpinn_tpu.{name}")) - CZ_NAMES
+        got = _public(importlib.import_module(f"qcpinn_tpu_torch.{name}"))
+        assert want <= got, (name, sorted(want - got))
+    from qcpinn_tpu import ops as jops, train as jtrain
+    from qcpinn_tpu_torch import ops as tops, train as ttrain
+
+    assert set(jops.__all__) <= set(tops.__all__)
+    assert set(jtrain.__all__) <= set(ttrain.__all__)
+
+
+def test_no_refusal_names_the_hardware_modes():
+    """Every NotImplementedError of the port names an item still to come;
+    none names the hardware-fidelity modes, which are ported."""
+    refusal = re.compile(r"NotImplementedError\((?:[^()]|\([^()]*\))*\)", re.S)
+    seen = 0
+    for root, _, files in os.walk(PKG_DIR):
+        for f in files:
+            if f.endswith(".py"):
+                with open(os.path.join(root, f)) as fh:
+                    for m in refusal.finditer(fh.read()):
+                        seen += 1
+                        assert "hardware-fidelity" not in m.group(0), (f, m.group(0))
+    assert seen >= 4  # the CV solver, parallel, crystal, Czochralski
+
+
+def test_hardware_modes_default_to_the_card(monkeypatch, tmp_path):
+    from qcpinn_tpu_torch import cli
+    from qcpinn_tpu_torch.config import QCPINNConfig
+    from qcpinn_tpu_torch.models import DVSolver
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for flags in (["--gradient-mode", "spsa"], ["--gradient-mode", "parameter-shift"],
+                  ["--noise-per-gate", "0.01", "--shots", "64"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main(["train", *flags, "--output-dir", str(tmp_path / "runs")])
+    assert not (tmp_path / "runs").exists()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DVSolver(QCPINNConfig(num_qubits=3, noise_depolarizing=0.1))

@@ -234,9 +234,9 @@ def test_unported_modes_raise_and_constants_cached():
     fc = sk.FusedCircuit(tc)
     x = torch.zeros(2, 4)
     p = torch.zeros(tc.num_params)
-    with pytest.raises(NotImplementedError, match="hardware-fidelity modes"):
+    # the readout modes are ported (tests/test_torch_measure.py); shots
+    # still need a generator
+    with pytest.raises(ValueError, match="shots mode needs a PRNG key"):
         fc.apply(p, x, shots=16)
-    with pytest.raises(NotImplementedError, match="hardware-fidelity modes"):
-        fc.apply(p, x, noise=object())
     assert fc.constants("cpu") is fc.constants(torch.device("cpu"))
     assert fc(p, x).shape == (2, 4)

@@ -285,8 +285,13 @@ def test_readme_library_form(capsys):
 def test_unported_modes_raise():
     cfg = TConfig(num_qubits=2, classic_network=(3, 4, 1), epochs=1, batch_size=6)
     terms = diffusion_terms(tdd.gaussian_pulse_samplers(), 6)
-    with pytest.raises(NotImplementedError, match="hardware-fidelity modes"):
-        train(TDV(cfg, device="cpu"), TConfig(gradient_mode="spsa", epochs=1), terms,
+    with pytest.raises(ValueError, match="needs quantum parameters"):
+        train(TClassical(TConfig(solver="Classical", classic_network=(3, 4, 1)), device="cpu"),
+              TConfig(solver="Classical", gradient_mode="spsa-split", epochs=1), terms,
+              diffusion_operator, device="cpu")
+    with pytest.raises(ValueError, match="needs a solver with a hardware apply"):
+        train(TClassical(TConfig(solver="Classical", classic_network=(3, 4, 1)), device="cpu"),
+              TConfig(solver="Classical", gradient_mode="parameter-shift", epochs=1), terms,
               diffusion_operator, device="cpu")
     with pytest.raises(NotImplementedError, match="parallel"):
         train(TDV(cfg, device="cpu"), cfg, terms, diffusion_operator, mesh=object(),
