@@ -179,6 +179,24 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                ms a step, launches and idle share; (e) the two JAX
                records' SPSA commands (artifacts/spsa_ab_*.json) at 300
                epochs, kernel counters 0.
+6g. cz         the Czochralski flagship (no kernel of the package on this
+               path; every counter 0): ``cli.main(["cz", "--phase", "eval",
+               ...])`` of artifacts/cz_real_wide384_400 (--trunk-width 384)
+               and cz_real_balanced on data/cz_melt_raw.txt, each field's
+               rel-L2 within 1% and val_mse within 2% of JAX's own
+               evaluation of the checkpoint (CZ_JAX_CPU_EVAL; the TPU
+               records, 1.1-2.3x below it, beside); the pretrain step of the
+               wide384_400 record's command (16q, trunk 384, B = 256,
+               balanced, physics engaged) graphed against eager over 5 steps,
+               bit-equal (losses, parameters, EMA state), ms a step, a
+               profile of each (launches, device ms, idle share), the peak
+               memory of each, and the peak at B = 512 with remat (the
+               forward-mode residual in chunks of 256 rows); head- and
+               full-scope finetune steps from that checkpoint at --shots
+               4096 --calib-size 8 with the ft_noise record's noise, graphed
+               against eager (means within 3 standard errors over 10 sampled
+               steps), ms a step, the circuit evaluations a step (289 in full
+               scope) and the leaves that moved.
 16. cluster_kernels the cluster pair (K1/K2 at 13-16 qubits) and K2b at 16
                qubits with B = 1536 stream rows and B = 425 value rows, and
                at 13 qubits with the same batches: against the plain
@@ -214,6 +232,11 @@ Measurements beside the smoke test:
     python3 chip_smoke.py --cli-train          # device, cli_train, north_star_classical
     python3 chip_smoke.py --hw-modes           # the JAX SPSA records at 3000 epochs,
                                                # parameter-shift at --shots 1024
+    python3 chip_smoke.py --cz-phase           # device, cz
+    python3 chip_smoke.py --cz                 # JAX's Cz records: the six checkpoints'
+                                               # evals, the three finetune records'
+                                               # commands, the balanced pretrain
+                                               # under a 20-minute budget
 """
 
 import json
@@ -245,7 +268,13 @@ PEAKS = {
 }
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's line carries the seconds since the start."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -1909,6 +1938,460 @@ def hw_modes_check():
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
 
 
+# -- the Czochralski flagship (phase cz, --cz-phase, --cz) -----------------------
+
+CZ_DATA = "data/cz_melt_raw.txt"
+# (checkpoint, its flags) of the eval checks; the default run takes the
+# first two, --cz all six of JAX's Cz checkpoints
+CZ_EVALS = (
+    ("artifacts/cz_real_wide384_400", ["--trunk-width", "384"]),
+    ("artifacts/cz_real_balanced", []),
+    ("artifacts/cz_real_wide384", ["--trunk-width", "384"]),
+    ("artifacts/cz_real_finetune", []),
+    ("artifacts/cz_real_finetune_full", []),
+    ("artifacts/cz_real_wide384_400_ft_noise", ["--trunk-width", "384"]),
+)
+CZ_FIELD_RTOL = 0.01  # each field's rel-L2 against JAX's
+CZ_MSE_RTOL = 0.02  # val_mse against JAX's
+# JAX's own evaluation of each checkpoint on the CPU (the JAX package's
+# evaluate_cz_fields on data/cz_melt_raw.txt with the checkpoint's stats;
+# tests/test_torch_cz_records.py recomputes it, pytest -m slow). The
+# artifacts' *_eval.json records were taken on the TPU, whose default
+# precision rounds the inputs of the Fourier projection (nn_core.py's
+# fourier_features_apply: a jnp.dot without precision=HIGHEST) to bf16, so
+# they are 1.1-2.3x below these; the port, like JAX on the CPU, projects in
+# f32. The port is held to these.
+CZ_JAX_CPU_EVAL = {
+    "artifacts/cz_real_wide384_400": {
+        "val_mse": 1.9449623778200475e-06, "rel_l2_u_r_percent": 8.21337718503944,
+        "rel_l2_u_z_percent": 2.3559215367612865, "rel_l2_u_theta_percent": 12.147654268516199,
+        "rel_l2_p_percent": 0.1512547097355727, "rel_l2_T_percent": 0.21459041423402955},
+    "artifacts/cz_real_balanced": {
+        "val_mse": 2.976521045638947e-06, "rel_l2_u_r_percent": 16.17667754829257,
+        "rel_l2_u_z_percent": 2.8433419920270464, "rel_l2_u_theta_percent": 22.390440401727826,
+        "rel_l2_p_percent": 0.19016388283147126, "rel_l2_T_percent": 0.2672229193960725},
+    "artifacts/cz_real_wide384": {
+        "val_mse": 2.091814167215489e-06, "rel_l2_u_r_percent": 9.369381494069826,
+        "rel_l2_u_z_percent": 2.5075968642115734, "rel_l2_u_theta_percent": 14.54402940293444,
+        "rel_l2_p_percent": 0.14717287491873557, "rel_l2_T_percent": 0.19742111794489509},
+    "artifacts/cz_real_finetune": {
+        "val_mse": 3.636244400695432e-06, "rel_l2_u_r_percent": 19.292691882127922,
+        "rel_l2_u_z_percent": 3.0434350440914995, "rel_l2_u_theta_percent": 30.516238238720867,
+        "rel_l2_p_percent": 0.22495521446682867, "rel_l2_T_percent": 0.305993073314344},
+    "artifacts/cz_real_finetune_full": {
+        "val_mse": 8.48624677018961e-06, "rel_l2_u_r_percent": 22.209790367073772,
+        "rel_l2_u_z_percent": 3.776677741292878, "rel_l2_u_theta_percent": 75.53609456114079,
+        "rel_l2_p_percent": 0.47666401247462176, "rel_l2_T_percent": 0.5569283491133427},
+    "artifacts/cz_real_wide384_400_ft_noise": {
+        "val_mse": 2.107660520778154e-06, "rel_l2_u_r_percent": 10.134801057862287,
+        "rel_l2_u_z_percent": 2.4105494200414013, "rel_l2_u_theta_percent": 14.749899344842035,
+        "rel_l2_p_percent": 0.16456859621660488, "rel_l2_T_percent": 0.229083839037599},
+}
+CZ_CKPT = "artifacts/cz_real_wide384_400"  # the steps' starting point
+CZ_QUBITS, CZ_WIDTH = 16, 384  # its circuit and trunk
+# the wide384_400 record's pretrain command: 16 qubits, 2 layers, trunk 384,
+# B = 256, balanced, warmup 25, ramp 60, 400 epochs; epoch 100 has the
+# physics fully engaged
+CZ_PRETRAIN = dict(epochs=400, batch_size=256, physics_weight=0.05, physics_warmup=25,
+                   physics_ramp=60, physics_normalize="balanced", seed=42)
+CZ_EPOCH = 100
+CZ_STEPS = 5  # graph against eager: 3 eager warm-ups, the capture, a replay
+# the ft_noise record's finetune (artifacts/cz_real_wide384_400_ft_noise.json)
+CZ_FINETUNE = dict(shots=4096, calib_size=8, noise_readout=0.01, noise_per_gate=0.001,
+                   seed=42)
+CZ_FT_STEPS = 10  # sampled steps, graph against eager: means within 3 se
+# the JAX records' finetune commands (--cz) and the pretrain record timed
+CZ_FT_RECORDS = ("artifacts/cz_real_finetune", "artifacts/cz_real_finetune_full",
+                 "artifacts/cz_real_wide384_400_ft_noise")
+CZ_PRETRAIN_RECORD = "artifacts/cz_real_balanced"
+CZ_PRETRAIN_MINUTES = 20
+
+
+def cz_cli(argv):
+    """``cli.main(argv)`` on the card with its standard output captured;
+    (exit code, the output, seconds)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from qcpinn_tpu_torch import cli
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    return rc, buf.getvalue(), time.perf_counter() - t0
+
+
+def cz_eval(ckpt, flags, out_root):
+    """``cz --phase eval`` of ``ckpt`` on the real melt data: the metrics
+    against JAX's own evaluation of the checkpoint (CZ_JAX_CPU_EVAL: each
+    field's rel-L2 within 1% relative, val_mse within 2%) and, for the
+    record, against the checkpoint's TPU eval record; the kernel counters 0
+    (no kernel of the package is on the Cz path)."""
+    reset_kernel_counters()
+    rc, text, seconds = cz_cli(["cz", "--phase", "eval", "--data", CZ_DATA, "--load", ckpt,
+                                *flags, "--no-plots", "--output-dir", out_root])
+    counters = kernel_counters()
+    if rc != 0 or any(counters.values()):
+        raise SystemExit(f"cz eval {ckpt}: exit code {rc}, kernel counters {counters}")
+    metrics = json.loads([ln for ln in text.splitlines() if ln.startswith("{")][-1])
+    jax_cpu = CZ_JAX_CPU_EVAL[ckpt]
+    ratio = {k: metrics[k] / jax_cpu[k] for k in jax_cpu}
+    ok = all(abs(r - 1.0) <= (CZ_MSE_RTOL if k == "val_mse" else CZ_FIELD_RTOL)
+             for k, r in ratio.items())
+    row = {"checkpoint": ckpt, "seconds": seconds, "metrics": metrics,
+           "over_jax_cpu": ratio, "within_tolerance": ok}
+    if os.path.exists(ckpt + "_eval.json"):
+        with open(ckpt + "_eval.json") as f:
+            record = json.load(f)
+        row["tpu_record_over_jax_cpu"] = {k: record[k] / jax_cpu[k] for k in record}
+    return row
+
+
+def cz_tree(ckpt):
+    from qcpinn_tpu_torch.models.czochralski import Hybrid16QPINN
+    from qcpinn_tpu_torch.utils.checkpoint import load_checkpoint
+
+    return load_checkpoint(ckpt, Hybrid16QPINN(CZ_QUBITS, 2, width=CZ_WIDTH, device="cpu"))
+
+
+def cz_pretrain_epoch(dev, tree, X, Y, stats, batch, remat):
+    """A PretrainEpoch of the wide384_400 command on a model loaded with
+    ``tree``, its lr and physics weight those of epoch CZ_EPOCH."""
+    from qcpinn_tpu_torch.bridge import params_from_jax
+    from qcpinn_tpu_torch.models.czochralski import Hybrid16QPINN
+    from qcpinn_tpu_torch.train import cz_pipeline as cp
+
+    model = Hybrid16QPINN(CZ_QUBITS, 2, remat=remat, width=CZ_WIDTH, seed=42, device=dev)
+    model.load_state_dict(params_from_jax(tree))
+    cfg = cp.CzConfig(**{**CZ_PRETRAIN, "n_qubits": CZ_QUBITS, "batch_size": batch,
+                         "remat": remat})
+    ep = cp.make_pretrain_epoch(model, X, Y, stats, cfg)
+    ep.phys_w.fill_(cp._phys_weight(cfg, CZ_EPOCH))
+    ep.lr.fill_(cp._cosine_lr(cfg.lr, CZ_EPOCH, cfg.epochs))
+    return model, ep
+
+
+class _Stepper:
+    """``step()`` for ``bench.profile``."""
+
+    def __init__(self, fn):
+        self.step = fn
+
+
+def cz_pretrain(dev):
+    """The pretrain step at the wide384_400 record's command: the graphed
+    step against the eager one, CZ_STEPS steps on the same batches (losses,
+    parameters and the EMA state bit-equal); ms a step eager (after its
+    first step) and graphed, a 3-step profile of the graphed step
+    (launches, device ms, idle share), the peak memory of each; then the
+    peak memory at B = 512 with remat (its forward-mode residual in chunks
+    of 256 rows)."""
+    import torch
+
+    from qcpinn_tpu_torch import bench
+    from qcpinn_tpu_torch.data.cz_loader import DataStats, load_cz_data
+
+    restored = cz_tree(CZ_CKPT)
+    stats = DataStats.from_dict(restored["stats"])
+    X, Y, _ = load_cz_data(CZ_DATA, stats)
+    tree = restored["bundle"]["params"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    perm = torch.randperm(len(X), generator=gen, device=dev)
+    Xd, Yd = torch.as_tensor(X, device=dev)[perm], torch.as_tensor(Y, device=dev)[perm]
+    b = CZ_PRETRAIN["batch_size"]
+
+    def steps(ep, n, start=0):
+        out = []
+        for i in range(start, start + n):
+            ep.xb.copy_(Xd[i * b:(i + 1) * b])
+            ep.yb.copy_(Yd[i * b:(i + 1) * b])
+            out.append(ep._step().clone())  # a replay's output is the graph's static tensor
+        return torch.stack(out)
+
+    row = {"batch": b, "width": CZ_WIDTH, "n_qubits": CZ_QUBITS, "epoch": CZ_EPOCH}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ref_model, ref = cz_pretrain_epoch(dev, tree, X, Y, stats, b, False)
+    ref._step = ref.static_step  # the eager plain version
+    l_ref = [steps(ref, 1)]  # the first step builds cuBLAS's handles and plans
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    l_ref.append(steps(ref, CZ_STEPS - 1, 1))
+    torch.cuda.synchronize()
+    row["eager_ms_per_step"] = 1e3 * (time.perf_counter() - t0) / (CZ_STEPS - 1)
+    l_ref = torch.cat(l_ref)
+    row["eager_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    got_model, got = cz_pretrain_epoch(dev, tree, X, Y, stats, b, False)
+    l_got = steps(got, CZ_STEPS)
+    torch.cuda.synchronize()
+    row["graph_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    want = dict(ref_model.named_parameters())
+    bit_equal = (torch.equal(l_got, l_ref)
+                 and all(torch.equal(p, want[k]) for k, p in got_model.named_parameters())
+                 and all(torch.equal(got.ema[k], ref.ema[k]) for k in ref.ema))
+    row.update({"parity_steps": CZ_STEPS, "bit_equal": bit_equal,
+                "loss_first": float(l_got[0, 0]), "loss_last": float(l_got[-1, 0]),
+                "data_last": float(l_got[-1, 1]), "phys_last": float(l_got[-1, 2]),
+                "eager_steps": got.captured.eager_steps, "captured": got.captured.captured})
+    if not bit_equal:
+        raise SystemExit(f"cz pretrain: graph not bit-equal to eager: {l_got.tolist()} "
+                         f"against {l_ref.tolist()}")
+    if not torch.isfinite(l_got).all():
+        raise SystemExit(f"cz pretrain: non-finite losses {l_got.tolist()}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps(got, GRAPH_TIME_STEPS, CZ_STEPS)
+    torch.cuda.synchronize()
+    row["graph_ms_per_step"] = 1e3 * (time.perf_counter() - t0) / GRAPH_TIME_STEPS
+    row["graph"] = bench.profile(_Stepper(lambda: steps(got, 1, CZ_STEPS)),
+                                 row["graph_ms_per_step"], steps=3, top=6)
+    row["epoch_s_at_graph_rate"] = row["graph_ms_per_step"] * (len(X) // b) / 1e3
+    del ref, got, ref_model, got_model
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    _, ep512 = cz_pretrain_epoch(dev, tree, X, Y, stats, 2 * b, True)
+    ep512._step = ep512.static_step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    l512 = torch.stack([ep512.step_fn(Xd[i * 2 * b:(i + 1) * 2 * b], Yd[i * 2 * b:(i + 1) * 2 * b],
+                                      ep512.phys_w, ep512.lr) for i in range(2)])
+    torch.cuda.synchronize()
+    row["remat_512"] = {"batch": 2 * b, "chunk_rows": ep512.chunk_rows,
+                        "eager_ms_per_step": 1e3 * (time.perf_counter() - t0) / 2,
+                        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                        "losses": l512[:, 0].tolist()}
+    if not torch.isfinite(l512).all():
+        raise SystemExit(f"cz pretrain B=512: non-finite losses {l512.tolist()}")
+    del ep512
+    torch.cuda.empty_cache()
+    return row
+
+
+def cz_finetune(dev):
+    """Head- and full-scope finetune steps from the wide384_400 checkpoint
+    with the ft_noise record's shots, calibration size and noise: the
+    graphed step (its generator registered) against the eager one from the
+    same seed over CZ_FT_STEPS sampled steps (means within 3 standard
+    errors), ms a step, a 3-step profile, the circuit evaluations a step
+    and the leaves that moved."""
+    import torch
+
+    from qcpinn_tpu_torch import bench
+    from qcpinn_tpu_torch.bridge import params_from_jax
+    from qcpinn_tpu_torch.data.cz_loader import DataStats, load_cz_data
+    from qcpinn_tpu_torch.models.czochralski import Hybrid16QPINN
+    from qcpinn_tpu_torch.train import cz_pipeline as cp
+    from qcpinn_tpu_torch.train.hardware_grad import evals_per_step_cz
+
+    restored = cz_tree(CZ_CKPT)
+    X, Y, _ = load_cz_data(CZ_DATA, DataStats.from_dict(restored["stats"]))
+    tree = restored["bundle"]["params"]
+    st = statistics
+    out = {}
+    for scope in ("head", "full"):
+        cfg = cp.CzConfig(**CZ_FINETUNE, n_qubits=CZ_QUBITS, train_scope=scope)
+        pair = []
+        for _ in range(2):
+            model = Hybrid16QPINN(CZ_QUBITS, 2, width=CZ_WIDTH, seed=42, device=dev)
+            model.load_state_dict(params_from_jax(tree))
+            gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1)
+            pair.append((model, cp.FinetuneStep(model, X, Y, cfg, gen)))
+        (ref_model, ref), (got_model, got) = pair
+        before = {k: p.detach().clone() for k, p in got_model.named_parameters()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        l_ref = [float(ref.step()) for _ in range(CZ_FT_STEPS)]
+        eager_ms = 1e3 * (time.perf_counter() - t0) / CZ_FT_STEPS
+        l_got = [float(got.run()) for _ in range(CZ_FT_STEPS)]
+        se = math.sqrt((st.pvariance(l_ref) + st.pvariance(l_got)) / CZ_FT_STEPS)
+        gap = abs(st.fmean(l_got) - st.fmean(l_ref))
+        if not (all(math.isfinite(v) for v in l_got) and gap <= 3.0 * se):
+            raise SystemExit(f"cz finetune {scope}: graph mean {st.fmean(l_got)} against "
+                             f"eager {st.fmean(l_ref)} (se {se})")
+        moved = sorted({k.split(".")[0] for k, p in got_model.named_parameters()
+                        if not torch.equal(p, before[k])})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(GRAPH_TIME_STEPS):
+            got.run()
+        torch.cuda.synchronize()
+        graph_ms = 1e3 * (time.perf_counter() - t0) / GRAPH_TIME_STEPS
+        out[scope] = {
+            "steps": CZ_FT_STEPS, "bit_equal": l_got == l_ref, "mean_loss_graph": st.fmean(l_got),
+            "mean_loss_eager": st.fmean(l_ref), "mean_gap_over_se": gap / se if se else 0.0,
+            "eager_ms_per_step": eager_ms, "graph_ms_per_step": graph_ms,
+            "graph": bench.profile(_Stepper(got.run), graph_ms, steps=3, top=6),
+            "circuit_evals_per_step": (evals_per_step_cz(got_model.qlayer)
+                                       if scope == "full" else 1),
+            "leaves_moved": moved}
+        del pair, ref, got, ref_model, got_model
+        torch.cuda.empty_cache()
+    if out["head"]["leaves_moved"] != ["post"] or "q" not in out["full"]["leaves_moved"]:
+        raise SystemExit(f"cz finetune: moved {out['head']['leaves_moved']} (head), "
+                         f"{out['full']['leaves_moved']} (full)")
+    return out
+
+
+def cz_phase(dev, smi):
+    """Phase ``cz``: ``cz --phase eval`` of the two records' checkpoints,
+    the pretrain step and the finetune steps; every kernel counter 0."""
+    import torch
+
+    out_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "runs", "chip_smoke")
+    os.makedirs(out_root, exist_ok=True)
+    t0 = time.perf_counter()
+    evals = [cz_eval(ck, flags, out_root) for ck, flags in CZ_EVALS[:2]]
+    bad = [r for r in evals if not r["within_tolerance"]]
+    if bad:
+        emit({"phase": "cz_eval_failed", "results": bad})
+        raise SystemExit("cz: eval outside its record's tolerance")
+    t_eval = time.perf_counter() - t0
+    reset_kernel_counters()
+    pretrain = cz_pretrain(dev)
+    t_pre = time.perf_counter() - t0 - t_eval
+    finetune = cz_finetune(dev)
+    counters = kernel_counters()
+    if any(counters.values()):
+        raise SystemExit(f"cz: kernels launched on this path: {counters}")
+    torch.cuda.empty_cache()
+    emit({"phase": "cz", "eval": evals, "pretrain": pretrain, "finetune": finetune,
+          "seconds": {"eval": t_eval, "pretrain": t_pre,
+                      "finetune": time.perf_counter() - t0 - t_eval - t_pre},
+          "tol": {"fields_rel": CZ_FIELD_RTOL, "val_mse_rel": CZ_MSE_RTOL},
+          "kernel_counters": f"all {len(counters)} at 0", "card": smi})
+
+
+def cz_record_finetune(path, out_root):
+    """The record's finetune command (its flags from the record's config,
+    --no-plots, our own --save), then eval of the result: against the
+    record's eval (each metric within JAX's factor 2) and its loss history
+    (each epoch's loss within a factor 2 of the record's); the eval also
+    against JAX's own evaluation of the record's checkpoint (its factor 2)."""
+    with open(path + ".json") as f:
+        rec = json.load(f)
+    c = rec["config"]
+    save = os.path.join(out_root, os.path.basename(path))
+    flags = ["--trunk-width", str(c.get("trunk_width") or 128)]
+    argv = ["cz", "--phase", "finetune", "--data", CZ_DATA, "--load", c["load"],
+            "--save", save, "--epochs", str(c["epochs"]), "--shots", str(c["shots"]),
+            "--calib-size", str(c["calib_size"]), "--train-scope", c["train_scope"],
+            "--noise-depolarizing", str(c["noise_depolarizing"] or 0.0),
+            "--noise-readout", str(c["noise_readout"] or 0.0),
+            "--noise-per-gate", str(c.get("noise_per_gate") or 0.0),
+            "--seed", str(c["seed"]), "--log-every", str(c["log_every"]),
+            "--no-plots", "--output-dir", out_root, *flags]
+    rc, _, seconds = cz_cli(argv)
+    if rc != 0:
+        raise SystemExit(f"cz finetune {path}: exit code {rc}")
+    with open(save + ".json") as f:
+        hist = json.load(f)["loss_history"]
+    want = rec["loss_history"]
+    ratios = [a / b for a, b in zip(hist, want)]
+    row = {"record": path, "argv": argv, "seconds": seconds, "epochs": len(hist),
+           "loss_first": hist[0], "loss_last": hist[-1],
+           "record_loss_first": want[0], "record_loss_last": want[-1],
+           "epochs_within_factor_2": sum(0.5 <= r <= 2.0 for r in ratios),
+           "loss_over_record_min_max": [min(ratios), max(ratios)]}
+    rc, text, eval_s = cz_cli(["cz", "--phase", "eval", "--data", CZ_DATA, "--load", save,
+                               *flags, "--no-plots", "--output-dir", out_root])
+    metrics = json.loads([ln for ln in text.splitlines() if ln.startswith("{")][-1])
+    row["eval"] = metrics
+    jax_cpu = CZ_JAX_CPU_EVAL[path]
+    row["eval_over_jax_cpu"] = {k: metrics[k] / jax_cpu[k] for k in jax_cpu}
+    row["eval_in_jax_cpu_band"] = all(0.5 <= r <= 2.0 for r in row["eval_over_jax_cpu"].values())
+    if os.path.exists(path + "_eval.json"):
+        with open(path + "_eval.json") as f:
+            record = json.load(f)
+        row["record_eval"] = record
+        row["eval_over_record"] = {k: metrics[k] / record[k] for k in record}
+        row["eval_in_band"] = all(0.5 <= r <= 2.0 for r in row["eval_over_record"].values())
+    return row
+
+
+def cz_record_pretrain(out_root):
+    """The cz_real_balanced record's pretrain command under --time-budget
+    CZ_PRETRAIN_MINUTES: the epochs reached, s an epoch, and the loss at each
+    logged epoch against the record's history (within a factor 2 after
+    epoch 1)."""
+    with open(CZ_PRETRAIN_RECORD + ".json") as f:
+        rec = json.load(f)
+    c = rec["config"]
+    save = os.path.join(out_root, "cz_real_balanced_port")
+    argv = ["cz", "--phase", "pretrain", "--data", CZ_DATA, "--save", save,
+            "--epochs", str(c["epochs"]), "--batch-size", str(c["batch_size"]),
+            "--lr", str(c["lr"]), "--physics-weight", str(c["physics_weight"]),
+            "--physics-warmup", str(c["physics_warmup"]),
+            "--physics-ramp", str(c["physics_ramp"]), "--physics-normalize",
+            c["physics_normalize"], "--seed", str(c["seed"]), "--log-every",
+            str(c["log_every"]), "--time-budget", str(CZ_PRETRAIN_MINUTES),
+            "--no-plots", "--output-dir", out_root]
+    rc, text, seconds = cz_cli(argv)
+    if rc != 0:
+        raise SystemExit(f"cz pretrain record: exit code {rc}")
+    with open(save + ".json") as f:
+        hist = json.load(f)["loss_history"]
+    want = rec["loss_history"]
+    logged = [e for e in range(1, len(hist) + 1) if e == 1 or e % c["log_every"] == 0]
+    by_epoch = {e: [hist[e - 1], want[e - 1], hist[e - 1] / want[e - 1]] for e in logged}
+    elapsed = [float(m) for m in re.findall(r"elapsed=([0-9.]+)s", text)]
+    return {"argv": argv, "seconds": seconds, "epochs_reached": len(hist),
+            "s_per_epoch": seconds / len(hist), "log_elapsed_s": elapsed[-1] if elapsed else None,
+            "loss_port_record_ratio_by_logged_epoch": by_epoch,
+            "in_band_after_epoch_1": all(0.5 <= r <= 2.0 for e, (_, _, r) in by_epoch.items()
+                                         if e > 1)}
+
+
+def cz_device():
+    """The device phase's checks for the cz modes; (device, smi line)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import qcpinn_tpu_torch  # noqa: F401  (sets TF32 off)
+
+    smi = nvidia_smi_line()
+    emit({"phase": "device", "name": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "allow_tf32": torch.backends.cuda.matmul.allow_tf32})
+    return torch.device("cuda"), smi
+
+
+def cz_phase_check():
+    """``--cz-phase``: the device phase's checks, then the cz phase alone
+    (no kernel is built: the Cz path runs none)."""
+    t_start = time.perf_counter()
+    dev, smi = cz_device()
+    cz_phase(dev, smi)
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
+
+
+def cz_check():
+    """``--cz``: JAX's Cz records on the card. The eval of every checkpoint
+    with an eval record, the three finetune records' commands and their
+    evals, and the cz_real_balanced pretrain command under a time budget."""
+    t_start = time.perf_counter()
+    dev, smi = cz_device()
+    out_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "runs", "chip_smoke")
+    os.makedirs(out_root, exist_ok=True)
+    emit({"phase": "cz_record_evals", "card": smi,
+          "results": [cz_eval(ck, flags, out_root) for ck, flags in CZ_EVALS]})
+    emit({"phase": "cz_record_finetunes", "card": smi,
+          "results": [cz_record_finetune(p, out_root) for p in CZ_FT_RECORDS]})
+    emit({"phase": "cz_record_pretrain", "card": smi,
+          "minutes": CZ_PRETRAIN_MINUTES, "result": cz_record_pretrain(out_root)})
+    del dev
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
+
+
 def stage2_rate(tree: str):
     """``--stage2-rate TREE``: the 16q north-star stage-2 step on the loop
     engine with TREE's ``qcpinn_tpu_torch`` (a tree with
@@ -2915,6 +3398,10 @@ def main():
         return cli_train_check()
     if sys.argv[1:] == ["--hw-modes"]:
         return hw_modes_check()
+    if sys.argv[1:] == ["--cz-phase"]:
+        return cz_phase_check()
+    if sys.argv[1:] == ["--cz"]:
+        return cz_check()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -3055,6 +3542,10 @@ def main():
 
     # -- 6f. the hardware-fidelity modes --------------------------------------
     hw_launches = {k.rsplit(".", 1)[1]: v for k, v in hw_modes_phase(dev, smi).items()}
+    torch.cuda.empty_cache()
+
+    # -- 6g. the Czochralski flagship (no kernel on this path) ---------------
+    cz_phase(dev, smi)
     torch.cuda.empty_cache()
 
     # -- 7-10. the 16q north-star path through the gate-loop kernels ---------

@@ -7,9 +7,13 @@ JAX trees: ``DVFourierSolver`` is ``{"ff": {"B"}, "pre": [{w, b}, ...],
 head also ``"rbf": {c, w, v, a}`` (same layout in both packages);
 ``DVSolver`` is ``{"pre", "q", "post"}`` alone; ``ClassicalSolver`` is
 ``{"pre": {w, b}, "hopfield": {"w_q": {w}, "w_k": {w}, "w_v": {w}},
-"post": {w, b}}`` (single layers, no bias in the projections). The loss
-balancers add ``"loss_log_vars"`` or ``"loss_ema"``: one scalar a term
-(``train/loop.py::inject_balancer_params``). ``w`` is ``[in, out]``; the
+"post": {w, b}}`` (single layers, no bias in the projections);
+``Hybrid16QPINN`` is ``{"ff": {"B"}, "coord_proj", "res1", "res2",
+"to_quantum", "classical_skip", "post": [{w, b}, ...], "q": [L, n, 3],
+"q_norm": {"beta", "gamma"}}``. The loss balancers add ``"loss_log_vars"``
+or ``"loss_ema"`` (one scalar a term,
+``train/loop.py::inject_balancer_params``), the Czochralski pipeline's
+coupled weighting ``"loss_bal": {"log_eps_data"}``. ``w`` is ``[in, out]``; the
 module holds ``nn.Linear.weight[out, in]``, so weights transpose on the way.
 Leaves cross as numpy arrays.
 """
@@ -22,9 +26,10 @@ import numpy as np
 import torch
 from torch import nn
 
-_MLPS = ("pre", "skip", "post")
-# scalar-per-key groups, laid out alike in both packages
-_GROUPS = ("rbf", "loss_log_vars", "loss_ema")
+_MLPS = ("pre", "skip", "post", "coord_proj", "res1", "res2", "to_quantum",
+         "classical_skip")
+# groups of named leaves, laid out alike in both packages
+_GROUPS = ("rbf", "loss_log_vars", "loss_ema", "q_norm", "loss_bal")
 
 
 def params_from_jax(tree) -> dict:

@@ -17,10 +17,19 @@ no CUDA kernel of the package is on this path. ``--gradient-mode``
 ``--noise-*`` flags are the hardware-fidelity modes (``train/loop.py``,
 ``train/hardware_grad.py``, ``train/spsa.py``, ``ops/measure.py``).
 
+``cz`` runs the two-phase Czochralski pipeline (``train/cz_pipeline.py``)
+with the JAX CLI's flags: ``--phase pretrain|finetune|eval`` with a
+checkpoint handoff (the JAX bundle format, with the normalization stats as
+sidecar and in the manifest), ``--quick-check``, ``--time-budget``, and
+the field maps of ``eval``.
+
+    python -m qcpinn_tpu_torch.cli cz --phase pretrain --data data/cz_melt_raw.txt \
+        --save runs/cz --batch-size 256 --physics-normalize balanced
+
 ``main(argv, device=None)`` runs on the card and raises without CUDA;
 ``device="cpu"`` runs on the CPU. Not yet ported, each raising
 ``NotImplementedError`` that names its ROADMAP item: ``--solver CV``,
-``--data-parallel``, and the ``crystal`` and ``cz`` subcommands.
+``--data-parallel`` and ``cz --amp > 1``, and the ``crystal`` subcommand.
 """
 
 from __future__ import annotations
@@ -109,9 +118,70 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--data-parallel", action="store_true",
                    help="shard the collocation batch over all local devices")
 
-    # not yet ported: main() refuses them, whatever their arguments
+    # not yet ported: main() refuses it, whatever its arguments
     sub.add_parser("crystal", help="phase-field crystal growth")
-    sub.add_parser("cz", help="Czochralski two-phase pipeline")
+
+    c = sub.add_parser("cz", help="Czochralski two-phase pipeline")
+    c.add_argument("--phase", choices=["pretrain", "finetune", "eval"], required=True)
+    c.add_argument("--data", required=True)
+    c.add_argument("--save", default="",
+                   help="checkpoint path (required for pretrain/finetune)")
+    c.add_argument("--load", default="")
+    c.add_argument("--n-qubits", type=int, default=16)
+    c.add_argument("--n-layers", type=int, default=2)
+    c.add_argument("--epochs", type=int, default=2000)
+    c.add_argument("--batch-size", type=int, default=16)
+    c.add_argument("--lr", type=float, default=1e-3)
+    # defaults track the reference flagship CLI (CG...16qubits.py:627-648)
+    c.add_argument("--re", type=float, default=15.0)
+    c.add_argument("--pr", type=float, default=28.463)
+    c.add_argument("--gr", type=float, default=8000.0)
+    c.add_argument("--physics-weight", type=float, default=0.05)
+    c.add_argument("--physics-warmup", type=int, default=150)
+    c.add_argument("--physics-ramp", type=int, default=400)
+    c.add_argument("--log-every", type=int, default=10)
+    c.add_argument("--physics-normalize", default="reference",
+                   choices=["reference", "balanced", "coupled"],
+                   help="'reference' = the EMAWeights ratio-to-average "
+                        "scheme (collapses the data fit when raw residuals "
+                        "dwarf the data loss); 'balanced' = scale physics "
+                        "to the data-loss magnitude via absolute EMAs; "
+                        "'coupled' = trainable CoupledAdaptiveWeighting "
+                        "(modified_qpinn_cg.py:142-156, see --coupled-ratio)")
+    c.add_argument("--coupled-ratio", type=float, default=100.0,
+                   help="data:physics noise-scale ratio for "
+                        "--physics-normalize coupled")
+    c.add_argument("--field-weights", default=None,
+                   help="comma-separated data-loss weights over "
+                        "u_r,u_z,u_theta,p,T (normalized to mean 1)")
+    c.add_argument("--time-budget", type=float, default=0.0,
+                   help="pretrain wall-clock budget in minutes (0 = none): "
+                        "stop after the epoch that crosses it and save the "
+                        "final checkpoint")
+    c.add_argument("--shots", type=int, default=4096)
+    c.add_argument("--calib-size", type=int, default=8)
+    c.add_argument("--train-scope", default="head", choices=["head", "full"])
+    c.add_argument("--noise-depolarizing", type=float, default=0.0,
+                   help="noisy-simulator finetune (the reference's ibm-sim "
+                        "phase with a FakeSherbrooke stand-in)")
+    c.add_argument("--noise-readout", type=float, default=0.0)
+    c.add_argument("--noise-per-gate", type=float, default=0.0,
+                   help="depth-aware per-gate depolarizing for the "
+                        "finetune phase (see train --noise-per-gate)")
+    c.add_argument("--seed", type=int, default=42)
+    c.add_argument("--save-every", type=int, default=0)
+    c.add_argument("--data-parallel", action="store_true",
+                   help="pretrain/eval data-parallel over all local devices")
+    c.add_argument("--trunk-width", type=int, default=128,
+                   help="classical trunk width (reference: 128); use the same "
+                        "width for --load/eval")
+    c.add_argument("--amp", type=int, default=1,
+                   help="amplitude-shard the circuit's 2^n statevector over "
+                        "this many devices")
+    c.add_argument("--quick-check", action="store_true",
+                   help="2-epoch, tiny-model smoke run")
+    c.add_argument("--output-dir", default="runs")
+    c.add_argument("--no-plots", action="store_true")
     return p
 
 
@@ -332,6 +402,194 @@ def cmd_train(args, device=None) -> int:
     return 0
 
 
+def cz_config(args):
+    """The ``CzConfig`` of ``cli cz``'s parsed flags."""
+    from .train.cz_pipeline import CzConfig
+
+    return CzConfig(
+        n_qubits=args.n_qubits,
+        n_layers=args.n_layers,
+        epochs=args.epochs,
+        batch_size=args.batch_size,
+        lr=args.lr,
+        seed=args.seed,
+        re=args.re,
+        pr=args.pr,
+        gr=args.gr,
+        physics_weight=args.physics_weight,
+        physics_warmup=args.physics_warmup,
+        physics_ramp=args.physics_ramp,
+        physics_normalize=args.physics_normalize,
+        coupled_ratio=args.coupled_ratio,
+        log_every=args.log_every,
+        finetune_epochs=args.epochs if args.phase == "finetune" else 100,
+        shots=args.shots,
+        calib_size=args.calib_size,
+        train_scope=args.train_scope,
+        noise_depolarizing=args.noise_depolarizing,
+        noise_readout=args.noise_readout,
+        noise_per_gate=args.noise_per_gate,
+        field_weights=(tuple(float(v) for v in args.field_weights.split(","))
+                       if args.field_weights else None),
+    )
+
+
+def _checkpoint_handoff(args):
+    """(stats, manifest) restored from ``--load`` before the data is read:
+    the stats from the sidecar (or, if it is lost, the manifest) for eval
+    and finetune, so the data is normalized in the space the model was
+    trained in; then the architecture guard, which fails loudly on a width,
+    qubit or layer mismatch (the leaf count alone cannot tell)."""
+    from .data.cz_loader import DataStats
+
+    ckpt_stats, manifest = None, {}
+    if not args.load:
+        return ckpt_stats, manifest
+    if os.path.exists(args.load + ".json"):
+        with open(args.load + ".json") as f:
+            manifest = json.load(f)
+    if args.phase in ("eval", "finetune"):
+        sidecar = args.load + ".stats.json"
+        if os.path.exists(sidecar):
+            with open(sidecar) as f:
+                ckpt_stats = DataStats.from_dict(json.load(f))
+        elif manifest.get("stats"):
+            ckpt_stats = DataStats.from_dict(manifest["stats"])
+    ckpt_config = manifest.get("config") or {}
+    for field, got in (("trunk_width", args.trunk_width), ("n_qubits", args.n_qubits),
+                       ("n_layers", args.n_layers)):
+        saved = ckpt_config.get(field)
+        if saved is not None and int(saved) != int(got):
+            flag = "--" + field.replace("_", "-")
+            raise SystemExit(f"checkpoint {args.load} was trained with {flag} "
+                             f"{saved}; rerun with {flag} {saved} (got {got})")
+    return ckpt_stats, manifest
+
+
+def cmd_cz(args, device=None) -> int:
+    from . import resolve_device
+    from .utils.logger import Logging
+
+    device = resolve_device(device)
+    if args.amp > 1 or args.data_parallel:
+        raise NotImplementedError(
+            "the Czochralski flagship's --data-parallel and --amp > 1 are not yet "
+            "ported (ROADMAP queue 1, parallel)")
+    logger = Logging(args.output_dir, f"cz-{args.phase}")
+    try:
+        return run_cz(args, device, logger)
+    finally:
+        logger.close()
+
+
+def run_cz(args, device, logger) -> int:
+    """The body of ``cmd_cz`` (JAX ``cmd_cz``, cli.py:529-764)."""
+    from .bridge import params_from_jax
+    from .data.cz_loader import choose_calibration_subset, load_cz_data
+    from .models.czochralski import Hybrid16QPINN
+    from .models.nn_core import count_trainable
+    from .train.cz_pipeline import run_finetune, run_pretrain
+    from .utils.checkpoint import load_checkpoint, save_checkpoint
+
+    if args.quick_check:
+        args.epochs = 2
+        args.n_qubits = min(args.n_qubits, 4)
+        args.n_layers = 1
+        args.batch_size = 4
+        logger.print("quick-check mode: 2 epochs, tiny circuit")
+
+    ckpt_stats, _ = _checkpoint_handoff(args)
+    X, Y, stats = load_cz_data(args.data, stats=ckpt_stats)
+    if ckpt_stats is not None:
+        logger.print("data normalized with the checkpoint's stats sidecar")
+    logger.print(f"loaded {X.shape[0]} nodes; stats: {stats.to_json()}")
+
+    cfg = cz_config(args)
+    model = Hybrid16QPINN(n_qubits=cfg.n_qubits, n_layers=cfg.n_layers,
+                          remat=cfg.effective_remat, width=args.trunk_width,
+                          seed=cfg.seed, device=device)
+
+    if args.phase in ("pretrain", "finetune") and not args.save:
+        raise SystemExit(f"{args.phase} phase requires --save")
+    if args.time_budget and args.phase != "pretrain":
+        logger.print(f"WARNING: --time-budget only applies to the pretrain phase; "
+                     f"ignored for --phase {args.phase}")
+
+    def load_params():
+        # cz bundles store params only: a resume gets a fresh optimizer, as
+        # in the reference (CG_HQPINN_IBMtest_16qubits.py:443-455)
+        return load_checkpoint(args.load, model)
+
+    if args.phase == "eval":
+        # field-wise rel-L2 and val MSE over the full node set
+        from .utils.evaluation import evaluate_cz_fields
+
+        if not args.load:
+            raise SystemExit("eval phase requires --load with a checkpoint")
+        model.load_state_dict(params_from_jax(load_params()["bundle"]["params"]))
+        metrics, pred = evaluate_cz_fields(model, X, Y, return_pred=True, device=device)
+        for k, v in metrics.items():
+            logger.print(f"{k}: {v:.6e}")
+        if not args.no_plots:
+            # truth-vs-prediction field maps over the node cloud
+            from .utils.plotting import plot_field_scatter
+
+            p = plot_field_scatter(X, Y, ["u_r", "u_z", "u_theta", "p", "T"],
+                                   logger.get_output_dir(), name="eval_fields", pred=pred)
+            logger.print(f"field maps written to {p}")
+        logger.print(json.dumps(metrics))
+        return 0
+
+    if args.phase == "pretrain":
+        def ckpt_fn(params, epoch, history):
+            save_checkpoint(args.save, params, loss_history=history,
+                            stats=stats.to_dict(), config=vars(args), epoch=epoch)
+
+        warm = None
+        if args.load:
+            # warm start from a checkpoint's params (fresh optimizer and
+            # schedule: the cz format holds no optimizer state)
+            restored = load_params()
+            warm = restored["bundle"]["params"]
+            logger.print(f"warm start from {args.load}")
+            saved_stats = restored.get("stats")
+            if saved_stats and saved_stats != stats.to_dict():
+                logger.print(
+                    "WARNING: warm-start checkpoint stats differ from the "
+                    "file-derived stats of --data; the warm-started params "
+                    "will be reinterpreted in the new normalized space")
+        model, history = run_pretrain(
+            model, X, Y, stats, cfg, logger=logger, params=warm,
+            checkpoint_fn=ckpt_fn if args.save_every else None,
+            save_every=args.save_every, time_budget_s=args.time_budget * 60.0)
+        # len(history) = the epochs actually run (a --time-budget stop may
+        # end the run early)
+        save_checkpoint(args.save, model, loss_history=history, stats=stats.to_dict(),
+                        config=vars(args), epoch=len(history))
+        logger.print(f"pretrain checkpoint saved to {args.save}.npz (+ stats sidecar)")
+        logger.print(f"trainable parameters: {count_trainable(model)}")
+        return 0
+
+    if not args.load:
+        raise SystemExit("finetune phase requires --load with the pretrain checkpoint")
+    params = load_params()["bundle"]["params"]
+    model.load_state_dict(params_from_jax(params))
+    # the pre-finetune diagnostic suite (cg-hqpinn/...:515-587)
+    if not args.no_plots:
+        from .utils.plotting import plot_cz_diagnostics
+
+        x_c, _ = choose_calibration_subset(X, Y, cfg.calib_size)
+        plot_cz_diagnostics(model, X, Y, logger.get_output_dir(), x_calib=x_c,
+                            device=device)
+        logger.print("diagnostic plots written (data_fields/calib_coverage/"
+                     "initial_pred_vs_gt/quantum_weights_hist)")
+    model, history = run_finetune(model, None, X, Y, stats, cfg, logger=logger)
+    save_checkpoint(args.save, model, loss_history=history, stats=stats.to_dict(),
+                    config=vars(args), epoch=cfg.finetune_epochs)
+    logger.print(f"finetune checkpoint saved to {args.save}.npz")
+    return 0
+
+
 def main(argv=None, device=None) -> int:
     """Parse ``argv`` (default: the command line) and run the subcommand on
     ``device`` (default: the card)."""
@@ -342,11 +600,12 @@ def main(argv=None, device=None) -> int:
         if rest:
             parser.error(f"unrecognized arguments: {' '.join(rest)}")
         return cmd_train(args, device)
-    if args.command == "crystal":
-        raise NotImplementedError(
-            "cli crystal is not yet ported (ROADMAP queue 1, crystal and SI-gated)")
+    if args.command == "cz":
+        if rest:
+            parser.error(f"unrecognized arguments: {' '.join(rest)}")
+        return cmd_cz(args, device)
     raise NotImplementedError(
-        "cli cz is not yet ported (ROADMAP queue 1, Czochralski flagship)")
+        "cli crystal is not yet ported (ROADMAP queue 1, crystal and SI-gated)")
 
 
 if __name__ == "__main__":

@@ -57,6 +57,20 @@ def mlp_apply(
     return x
 
 
+def layernorm_init(dim: int) -> nn.ParameterDict:
+    """LayerNorm parameters {gamma: ones, beta: zeros}, ``[dim]`` each."""
+    return nn.ParameterDict({"gamma": nn.Parameter(torch.ones(dim)),
+                             "beta": nn.Parameter(torch.zeros(dim))})
+
+
+def layernorm_apply(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Over the last axis, with the biased variance, as JAX's
+    ``layernorm_apply``."""
+    mean = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.var(x, dim=-1, keepdim=True, correction=0)
+    return params["gamma"] * (x - mean) * torch.rsqrt(var + eps) + params["beta"]
+
+
 def count_params(model: nn.Module) -> int:
     """Every tensor of the model: its parameters and its buffers (the
     Fourier map's ``B``, the EMA balancer's state)."""

@@ -1,5 +1,6 @@
 """PDE residuals of the PyTorch port."""
 
+from .cylindrical import cz_residuals
 from .operators import (
     diffusion_operator,
     helmholtz_operator,
@@ -8,6 +9,7 @@ from .operators import (
     wave_operator,
 )
 from .operators_fwd import (
+    cz_residuals_fwd,
     diffusion_operator_fwd,
     helmholtz_operator_fwd,
     klein_gordon_operator_fwd,
@@ -26,6 +28,8 @@ __all__ = [
     "klein_gordon_operator_fwd",
     "navier_stokes_2d_operator_fwd",
     "wave_operator_fwd",
+    "cz_residuals",
+    "cz_residuals_fwd",
     "get_operator",
 ]
 

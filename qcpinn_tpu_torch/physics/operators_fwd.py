@@ -1,6 +1,6 @@
 """Forward-mode PDE residual operators (port of
-qcpinn_tpu/physics/operators_fwd.py; ``cz_residuals_fwd`` waits for the
-Czochralski flagship, ROADMAP queue 1).
+qcpinn_tpu/physics/operators_fwd.py): the five PDEs of ``cli train`` and
+the Czochralski melt's ``cz_residuals_fwd``.
 
 For point-decoupled models (every DV solver: each collocation point flows
 through the network on its own) the Jacobian across the batch is diagonal,
@@ -131,3 +131,20 @@ def navier_stokes_2d_operator_fwd(
     f_u = u_t + (u * u_x + v * u_y) + p_x / rho - mu * (u_xx + u_yy)
     f_v = v_t + (u * v_x + v * v_y) + p_y / rho - mu * (v_xx + v_yy)
     return continuity[:, None], f_u[:, None], f_v[:, None]
+
+
+def cz_residuals_fwd(
+    apply: ModelFn,
+    x: torch.Tensor,
+    pressure_coeff: float,
+    re: float,
+    pr: float,
+    gr: float,
+):
+    """Forward-mode version of ``physics.cylindrical.cz_residuals``: one
+    jvp-over-jvp of the full 5-output model along r, one along z."""
+    from .cylindrical import cz_terms
+
+    pred, d_r, d2_r = _d2(apply, x, 0)
+    _, d_z, d2_z = _d2(apply, x, 1)
+    return cz_terms(pred, d_r, d_z, d2_r, d2_z, x, pressure_coeff, re, pr, gr)

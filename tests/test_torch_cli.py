@@ -116,7 +116,7 @@ def test_flags_match_the_jax_cli():
     (["train", "--solver", "CV"], "the CV solver"),
     (["train", "--data-parallel"], "parallel"),
     (["crystal", "--spsa-steps", "5"], "crystal and SI-gated"),
-    (["cz", "--phase", "pretrain", "--data", "x"], "Czochralski flagship"),
+    (["cz", "--phase", "pretrain", "--data", "x", "--amp", "2"], "Czochralski flagship"),
 ])
 def test_unported_options_raise(argv, match, tmp_path):
     out = ["--output-dir", str(tmp_path / "out")] if argv[0] == "train" else []

@@ -346,8 +346,6 @@ def test_warp_route_takes_the_cta_size_that_keeps_most_warps(monkeypatch):
 
 HW_MODULES = ("ops.measure", "train.hardware_grad", "train.spsa", "train.staged",
               "train.lbfgs")
-# wait for the Czochralski flagship (ROADMAP queue 1, item 3)
-CZ_NAMES = {"make_hw_apply_cz", "evals_per_step_cz"}
 
 
 def _public(mod):
@@ -362,7 +360,7 @@ def test_hardware_modules_have_the_jax_names():
     import importlib
 
     for name in HW_MODULES:
-        want = _public(importlib.import_module(f"qcpinn_tpu.{name}")) - CZ_NAMES
+        want = _public(importlib.import_module(f"qcpinn_tpu.{name}"))
         got = _public(importlib.import_module(f"qcpinn_tpu_torch.{name}"))
         assert want <= got, (name, sorted(want - got))
     from qcpinn_tpu import ops as jops, train as jtrain
@@ -384,7 +382,7 @@ def test_no_refusal_names_the_hardware_modes():
                     for m in refusal.finditer(fh.read()):
                         seen += 1
                         assert "hardware-fidelity" not in m.group(0), (f, m.group(0))
-    assert seen >= 4  # the CV solver, parallel, crystal, Czochralski
+    assert seen >= 4  # the CV solver, parallel (train, cz, the Cz model), crystal
 
 
 def test_hardware_modes_default_to_the_card(monkeypatch, tmp_path):
@@ -400,3 +398,34 @@ def test_hardware_modes_default_to_the_card(monkeypatch, tmp_path):
     assert not (tmp_path / "runs").exists()
     with pytest.raises(RuntimeError, match="CUDA"):
         DVSolver(QCPINNConfig(num_qubits=3, noise_depolarizing=0.1))
+
+
+def test_cz_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """``cli cz``, the Cz model, its evaluation and its plots default to the
+    card and raise without CUDA, before any run directory is made; they run
+    on the CPU only when asked (``device="cpu"``)."""
+    import numpy as np
+
+    from qcpinn_tpu_torch import cli
+    from qcpinn_tpu_torch.models.czochralski import Hybrid16QPINN
+    from qcpinn_tpu_torch.utils.evaluation import evaluate_cz_fields
+    from qcpinn_tpu_torch.utils.plotting import plot_cz_diagnostics
+
+    model = Hybrid16QPINN(2, 1, width=4, device="cpu")
+    X, Y = np.zeros((3, 2), np.float32), np.zeros((3, 5), np.float32)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    data = os.path.join(REPO, "data", "cz_melt_synthetic.txt")
+    for phase in ("pretrain", "finetune", "eval"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main(["cz", "--phase", phase, "--data", data, "--save", str(tmp_path / "c"),
+                      "--output-dir", str(tmp_path / "runs")])
+    assert not (tmp_path / "runs").exists()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Hybrid16QPINN(2, 1, width=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluate_cz_fields(model, X, Y)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        plot_cz_diagnostics(model, X, Y, str(tmp_path))
+    m = evaluate_cz_fields(model, X, Y, batch=2, device="cpu")
+    assert set(m) == {"val_mse", "rel_l2_u_r_percent", "rel_l2_u_z_percent",
+                      "rel_l2_u_theta_percent", "rel_l2_p_percent", "rel_l2_T_percent"}
