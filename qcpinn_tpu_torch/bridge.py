@@ -1,6 +1,7 @@
 """Parameter bridge between the JAX package's params pytree and the port's
-modules (``DVFourierSolver``, ``DVSolver``, ``ClassicalSolver``), so one set
-of weights drives both packages.
+modules (``DVFourierSolver``, ``DVSolver``, ``ClassicalSolver``,
+``Hybrid16QPINN``, ``CVSolver``, ``CrystalPINN``, the SI-gated head), so one
+set of weights drives both packages.
 
 JAX trees: ``DVFourierSolver`` is ``{"ff": {"B"}, "pre": [{w, b}, ...],
 "skip": [{w, b}], "q": [layers, P], "post": [{w, b}, ...]}``, with an RBF
@@ -10,7 +11,12 @@ head also ``"rbf": {c, w, v, a}`` (same layout in both packages);
 "post": {w, b}}`` (single layers, no bias in the projections);
 ``Hybrid16QPINN`` is ``{"ff": {"B"}, "coord_proj", "res1", "res2",
 "to_quantum", "classical_skip", "post": [{w, b}, ...], "q": [L, n, 3],
-"q_norm": {"beta", "gamma"}}``. The loss balancers add ``"loss_log_vars"``
+"q_norm": {"beta", "gamma"}}``; ``CVSolver`` is ``{"pre", "cv": {theta_1,
+theta_2, squeezing_r, ...}, "post"}`` (the CV layer's named leaves);
+``CrystalPINN`` is ``{"backbone": [{w, b}, ...], "pre_q": {w, b}, "q": [P],
+"post"}``; the SI-gated head is ``{"post_dense", "gate_m", "gate_n",
+"out"}``, single layers (a model that holds ``SIChainCircuit``'s weights
+keeps them as ``"q"``). The loss balancers add ``"loss_log_vars"``
 or ``"loss_ema"`` (one scalar a term,
 ``train/loop.py::inject_balancer_params``), the Czochralski pipeline's
 coupled weighting ``"loss_bal": {"log_eps_data"}``. ``w`` is ``[in, out]``; the
@@ -27,9 +33,9 @@ import torch
 from torch import nn
 
 _MLPS = ("pre", "skip", "post", "coord_proj", "res1", "res2", "to_quantum",
-         "classical_skip")
+         "classical_skip", "backbone", "pre_q", "post_dense", "gate_m", "gate_n", "out")
 # groups of named leaves, laid out alike in both packages
-_GROUPS = ("rbf", "loss_log_vars", "loss_ema", "q_norm", "loss_bal")
+_GROUPS = ("rbf", "loss_log_vars", "loss_ema", "q_norm", "loss_bal", "cv")
 
 
 def params_from_jax(tree) -> dict:

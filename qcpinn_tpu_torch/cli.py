@@ -3,19 +3,31 @@
     python -m qcpinn_tpu_torch.cli train --problem diffusion --epochs 20000
 
 ``train`` takes the JAX CLI's flags, choices and defaults and follows its
-``cmd_train`` step for step: pick a solver (DV or Classical), an ansatz
-and a problem (diffusion, diffusion_sine, wave, klein_gordon, helmholtz,
-navier_stokes), train (``train/loop.py::train``: on the card one captured
-CUDA graph a step), evaluate relative L2 on the meshgrid, and write the
-config, circuit diagram, checkpoint and plots into a timestamped run
-directory. The DV solver's residual is the forward-mode operator
+``cmd_train`` step for step: pick a solver (DV, CV or Classical), an
+ansatz and a problem (diffusion, diffusion_sine, wave, klein_gordon,
+helmholtz, navier_stokes), train (``train/loop.py::train``: on the card one
+captured CUDA graph a step), evaluate relative L2 on the meshgrid, and
+write the config, circuit diagram, checkpoint and plots into a timestamped
+run directory. The DV and CV solvers' residual is the forward-mode operator
 (``physics/operators_fwd.py``), the Hopfield baseline's the reverse-mode
 one (``physics/operators.py``), which its batch coupling needs; the DV
-circuit runs gate by gate under nested forward AD, as in the JAX CLI, so
-no CUDA kernel of the package is on this path. ``--gradient-mode``
+circuit and the CV photonic layer (``models/cv_layer.py``, ``--cv-class``,
+``--cutoff-dim``, ``--num-qubits`` qumodes) run gate by gate under nested
+forward AD, as in the JAX CLI, so no CUDA kernel of the package is on this
+path. ``--gradient-mode``
 (backprop, parameter-shift, spsa, spsa-split), ``--shots`` and the three
 ``--noise-*`` flags are the hardware-fidelity modes (``train/loop.py``,
 ``train/hardware_grad.py``, ``train/spsa.py``, ``ops/measure.py``).
+
+``crystal`` trains the phase-field crystal-growth model
+(``models/crystal.py``, ``train/crystal.py``): an optional classical Adam
+warmup, then SPSA on the quantum weights (``--mode spsa``) or SPSA with
+simultaneous Adam on the classical ones (``--mode spsa-split``), with the
+JAX CLI's flags, log lines, ``--artifact`` summary and ``--save``
+checkpoint.
+
+    python -m qcpinn_tpu_torch.cli crystal --warmup-epochs 20 --spsa-steps 300 \
+        --log-every 20 --artifact crystal.json
 
 ``cz`` runs the two-phase Czochralski pipeline (``train/cz_pipeline.py``)
 with the JAX CLI's flags: ``--phase pretrain|finetune|eval`` with a
@@ -28,8 +40,8 @@ the field maps of ``eval``.
 
 ``main(argv, device=None)`` runs on the card and raises without CUDA;
 ``device="cpu"`` runs on the CPU. Not yet ported, each raising
-``NotImplementedError`` that names its ROADMAP item: ``--solver CV``,
-``--data-parallel`` and ``cz --amp > 1``, and the ``crystal`` subcommand.
+``NotImplementedError`` that names its ROADMAP item: ``--data-parallel``
+and ``cz --amp > 1``.
 """
 
 from __future__ import annotations
@@ -118,8 +130,32 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--data-parallel", action="store_true",
                    help="shard the collocation batch over all local devices")
 
-    # not yet ported: main() refuses it, whatever its arguments
-    sub.add_parser("crystal", help="phase-field crystal growth")
+    g = sub.add_parser(
+        "crystal",
+        help="phase-field crystal growth: 5-output hybrid model trained "
+             "by SPSA (hybrid_qpinn_2dcrystal_ibmtest.py)")
+    g.add_argument("--n-qubits", type=int, default=4)
+    g.add_argument("--n-layers", type=int, default=3)
+    g.add_argument("--spsa-steps", type=int, default=50)
+    g.add_argument("--spsa-lr", type=float, default=0.02)
+    g.add_argument("--spsa-delta", type=float, default=0.01)
+    g.add_argument("--n-bulk", type=int, default=32)
+    g.add_argument("--n-interface", type=int, default=64)
+    g.add_argument("--warmup-epochs", type=int, default=0,
+                   help="classical-only Adam pretrain epochs before SPSA "
+                        "(the staged recipe of test_hqpinn_cg.py:180-199)")
+    g.add_argument("--warmup-lr", type=float, default=1e-3)
+    g.add_argument("--mode", default="spsa", choices=["spsa", "spsa-split"],
+                   help="spsa = quantum weights only (reference fidelity); "
+                        "spsa-split = + simultaneous Adam on the classical "
+                        "partition (cg-hqpinn recipe)")
+    g.add_argument("--seed", type=int, default=0)
+    g.add_argument("--log-every", type=int, default=5)
+    g.add_argument("--artifact", default="",
+                   help="write a machine-readable run record (config + "
+                        "loss histories) to this JSON path")
+    g.add_argument("--save", default="", help="checkpoint path")
+    g.add_argument("--output-dir", default="runs")
 
     c = sub.add_parser("cz", help="Czochralski two-phase pipeline")
     c.add_argument("--phase", choices=["pretrain", "finetune", "eval"], required=True)
@@ -218,9 +254,10 @@ def make_config(args):
 
 
 def make_model(cfg, device):
-    from .models import ClassicalSolver, DVSolver
+    from .models import ClassicalSolver, CVSolver, DVSolver
 
-    return {"DV": DVSolver, "Classical": ClassicalSolver}[cfg.solver](cfg, device=device)
+    solver = {"DV": DVSolver, "CV": CVSolver, "Classical": ClassicalSolver}[cfg.solver]
+    return solver(cfg, device=device)
 
 
 def make_problem(problem: str, cfg):
@@ -330,9 +367,6 @@ def cmd_train(args, device=None) -> int:
     from .utils.logger import Logging
 
     device = resolve_device(device)
-    if args.solver == "CV":
-        raise NotImplementedError(
-            "--solver CV is not yet ported (ROADMAP queue 1, the CV solver)")
     if args.data_parallel:
         raise NotImplementedError(
             "--data-parallel is not yet ported (ROADMAP queue 1, parallel)")
@@ -348,6 +382,12 @@ def cmd_train(args, device=None) -> int:
 
             draw_circuit(model.circuit, out_dir)
             logger.print("circuit diagram written (circuit.txt / circuit.pdf)")
+        elif cfg.solver == "CV":
+            # CV program diagram (nn/CVPDESolver.py:139-152 draw_quantum_circuit)
+            from .utils.drawing import draw_cv_circuit
+
+            draw_cv_circuit(model.cv, out_dir)
+            logger.print("CV circuit diagram written (circuit.txt / circuit.pdf)")
 
         terms, operator, analytic_u, analytic_r = make_problem(args.problem, cfg)
         val_fn = None
@@ -397,6 +437,58 @@ def cmd_train(args, device=None) -> int:
                     draw_contourf_grid(model, analytic_u, out_dir, per_timestep=True,
                                        device=device)
                 logger.print("plots written")
+    finally:
+        logger.close()
+    return 0
+
+
+def cmd_crystal(args, device=None) -> int:
+    """The phase-field crystal-growth pipeline: CrystalPINN +
+    crystal_growth_loss + adaptive interface sampling + SPSA, the
+    reference's hybrid_qpinn_2dcrystal_ibmtest.py main() (:300-335) as a
+    subcommand (no cloud session; the exact engine stands in for the
+    Runtime Estimator). JAX ``cmd_crystal``, cli.py:459-520."""
+    import dataclasses
+
+    from . import resolve_device
+    from .models.crystal import CrystalPINN
+    from .models.nn_core import count_params
+    from .train.crystal import CrystalConfig, train_crystal
+    from .utils.checkpoint import save_checkpoint
+    from .utils.logger import Logging
+
+    device = resolve_device(device)
+    # the flags are the config's fields, by name
+    cfg = CrystalConfig(**{f.name: getattr(args, f.name)
+                           for f in dataclasses.fields(CrystalConfig)})
+    model = CrystalPINN(n_qubits=cfg.n_qubits, n_layers=cfg.n_layers, seed=cfg.seed,
+                        device=device)
+    logger = Logging(args.output_dir, "crystal")
+    try:
+        logger.print(f"crystal config: {json.dumps(dataclasses.asdict(cfg))}")
+        model, hist = train_crystal(model, cfg, logger=logger, device=device)
+        n_quantum = model.q.numel()
+        logger.print(f"parameters: {count_params(model)} (quantum: {n_quantum})")
+        h = hist["spsa_history"]
+        summary = {
+            "config": dataclasses.asdict(cfg),
+            "params_total": count_params(model),
+            "params_quantum": n_quantum,
+            "warmup_history": hist["warmup_history"],
+            "spsa_history": h,
+            "spsa_first5_mean": sum(h[:5]) / max(len(h[:5]), 1),
+            "spsa_last5_mean": sum(h[-5:]) / max(len(h[-5:]), 1),
+        }
+        logger.print(f"crystal loss: {summary['spsa_first5_mean']:.4e} -> "
+                     f"{summary['spsa_last5_mean']:.4e} over {len(h)} SPSA steps")
+        if args.save:
+            save_checkpoint(args.save, model, loss_history=h,
+                            config=dataclasses.asdict(cfg), epoch=len(h))
+            logger.print(f"checkpoint saved to {args.save}.npz")
+        if args.artifact:
+            with open(args.artifact, "w") as f:
+                json.dump(summary, f, indent=1)
+            logger.print(f"artifact written to {args.artifact}")
     finally:
         logger.close()
     return 0
@@ -593,19 +685,13 @@ def run_cz(args, device, logger) -> int:
 def main(argv=None, device=None) -> int:
     """Parse ``argv`` (default: the command line) and run the subcommand on
     ``device`` (default: the card)."""
-    parser = build_parser()
-    args, rest = parser.parse_known_args(argv)
+    args = build_parser().parse_args(argv)
     args._argv = list(argv) if argv is not None else None
     if args.command == "train":
-        if rest:
-            parser.error(f"unrecognized arguments: {' '.join(rest)}")
         return cmd_train(args, device)
-    if args.command == "cz":
-        if rest:
-            parser.error(f"unrecognized arguments: {' '.join(rest)}")
-        return cmd_cz(args, device)
-    raise NotImplementedError(
-        "cli crystal is not yet ported (ROADMAP queue 1, crystal and SI-gated)")
+    if args.command == "crystal":
+        return cmd_crystal(args, device)
+    return cmd_cz(args, device)
 
 
 if __name__ == "__main__":

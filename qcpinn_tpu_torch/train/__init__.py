@@ -1,6 +1,7 @@
 """Training pieces of the PyTorch port."""
 
 from . import losses, optim
+from .crystal import CrystalConfig, train_crystal
 from .cz_pipeline import CzConfig, make_pretrain_epoch, run_finetune, run_pretrain
 from .lbfgs import lbfgs_refine, make_fixed_batch_loss
 from .loop import (TermSpec, diffusion_terms, inject_balancer_params,
@@ -21,4 +22,6 @@ __all__ = [
     "make_pretrain_epoch",
     "run_pretrain",
     "run_finetune",
+    "CrystalConfig",
+    "train_crystal",
 ]

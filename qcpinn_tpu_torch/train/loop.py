@@ -26,7 +26,9 @@ which raises ``NotImplementedError``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 import time
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
@@ -564,6 +566,29 @@ def train_stage(
     return stage, int(resume.get("step", 0))
 
 
+@contextlib.contextmanager
+def profile_trace(profile_dir: Optional[str], device: torch.device, log=print):
+    """The ``QCPINN_PROFILE_DIR`` hook of ``train`` (the JAX package's
+    ``jax.profiler.start_trace``): with a directory, the body runs under
+    ``torch.profiler`` (host and, on the card, device activity) and a Chrome
+    trace, ``train-<pid>-<time>.pt.trace.json``, is written into it;
+    without one, the body runs as it is."""
+    if not profile_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(
+        profile_dir, f"train-{os.getpid()}-{int(time.time())}.pt.trace.json"))
+    log(f"profiler trace written to {profile_dir}")
+
+
 def train(
     model: nn.Module,
     config,
@@ -588,7 +613,9 @@ def train(
     every chunk. ``val_fn() -> scalar`` (:func:`make_val_fn`) enables
     best-validation tracking (si_q_pinn_improved.py:608-624): it is
     evaluated after every chunk, and the parameters (and balancer state)
-    with the lowest value are restored at the end."""
+    with the lowest value are restored at the end. With ``QCPINN_PROFILE_DIR``
+    set in the environment the training loop runs under ``torch.profiler``
+    and its trace is written there (:func:`profile_trace`)."""
     if mesh is not None:
         raise NotImplementedError(
             "the device-mesh data axis is not yet ported (ROADMAP queue 1, parallel)")
@@ -606,31 +633,32 @@ def train(
     done = start_step
     t0 = time.time()
     n_chunks = (max(config.epochs - start_step, 0) + chunk - 1) // chunk
-    for _ in range(n_chunks):
-        n = min(chunk, config.epochs - done)
-        trace = {k: v.tolist() for k, v in stage.run(n).items()}
-        done += n
-        loss_history.extend(trace["loss"])
-        elapsed = time.time() - t0
-        eta = elapsed / done * (config.epochs - done)
-        term_str = " | ".join(f"{name}: {trace[name][-1]:.2e}" for name in terms)
-        val_str = ""
-        if val_fn is not None:
-            v = float(val_fn())
-            if v < best_val:
-                best_val = v
-                best_state = {k: t.detach().clone()
-                              for k, t in model.state_dict().items()}
-                val_str = f" | val: {v:.2e} (best)"
-            else:
-                val_str = f" | val: {v:.2e} (best {best_val:.2e})"
-        log(
-            f"Epoch: {done}/{config.epochs} | Loss: {loss_history[-1]:.2e} | "
-            f"{term_str} | lr_scale: {trace['lr_scale'][-1]:.2e}"
-            f"{val_str} | Total: {elapsed:.1f}s | ETA: {eta:.1f}s"
-        )
-        if checkpoint_fn is not None:
-            checkpoint_fn(model, stage, done, loss_history)
+    with profile_trace(os.environ.get("QCPINN_PROFILE_DIR"), stage.gen.device, log):
+        for _ in range(n_chunks):
+            n = min(chunk, config.epochs - done)
+            trace = {k: v.tolist() for k, v in stage.run(n).items()}
+            done += n
+            loss_history.extend(trace["loss"])
+            elapsed = time.time() - t0
+            eta = elapsed / done * (config.epochs - done)
+            term_str = " | ".join(f"{name}: {trace[name][-1]:.2e}" for name in terms)
+            val_str = ""
+            if val_fn is not None:
+                v = float(val_fn())
+                if v < best_val:
+                    best_val = v
+                    best_state = {k: t.detach().clone()
+                                  for k, t in model.state_dict().items()}
+                    val_str = f" | val: {v:.2e} (best)"
+                else:
+                    val_str = f" | val: {v:.2e} (best {best_val:.2e})"
+            log(
+                f"Epoch: {done}/{config.epochs} | Loss: {loss_history[-1]:.2e} | "
+                f"{term_str} | lr_scale: {trace['lr_scale'][-1]:.2e}"
+                f"{val_str} | Total: {elapsed:.1f}s | ETA: {eta:.1f}s"
+            )
+            if checkpoint_fn is not None:
+                checkpoint_fn(model, stage, done, loss_history)
     if best_state is not None:
         log(f"restoring best-validation params (val={best_val:.2e})")
         model.load_state_dict(best_state)

@@ -1,7 +1,8 @@
 """Utilities of the PyTorch port."""
 
 from .checkpoint import load_checkpoint, save_checkpoint
-from .evaluation import evaluate_cz_fields, evaluate_relative_l2, meshgrid_points
+from .evaluation import (evaluate_cz_fields, evaluate_relative_l2, meshgrid_points,
+                         mse_at_time_slice)
 from .logger import Logging
 
 __all__ = [
@@ -10,5 +11,6 @@ __all__ = [
     "evaluate_cz_fields",
     "evaluate_relative_l2",
     "meshgrid_points",
+    "mse_at_time_slice",
     "Logging",
 ]

@@ -1,6 +1,7 @@
 """Evaluation (port of qcpinn_tpu/utils/evaluation.py): on a regular grid
-(``meshgrid_points``, ``evaluate_relative_l2``) and on the Czochralski node
-set (``evaluate_cz_fields``)."""
+(``meshgrid_points``, ``evaluate_relative_l2``), at a time slice
+(``mse_at_time_slice``) and on the Czochralski node set
+(``evaluate_cz_fields``)."""
 
 from __future__ import annotations
 
@@ -94,3 +95,25 @@ def evaluate_cz_fields(
     if return_pred:
         return out, pred
     return out
+
+
+@torch.no_grad()
+def mse_at_time_slice(
+    model_apply: Callable[[torch.Tensor], torch.Tensor],
+    analytic_u: Callable,
+    t: float = 0.5,
+    num: int = 20,
+    device=None,
+) -> float:
+    """MSE on a ``num`` x ``num`` spatial grid of the unit square at fixed
+    ``t`` (train_hybrid_qpinn.py:810-811), the model on ``device``
+    (default: the card). JAX's ``mse_at_time_slice(model_apply, params,
+    ...)`` with the parameters inside the module."""
+    device = resolve_device(device)
+    g = np.linspace(0.0, 1.0, num, dtype=np.float32)
+    X, Y = np.meshgrid(g, g, indexing="ij")
+    pts = np.stack([np.full(X.size, t, np.float32), X.ravel(), Y.ravel()], axis=1)
+    pts = torch.as_tensor(pts, device=device)
+    pred = model_apply(pts).cpu().numpy()
+    exact = analytic_u(pts).cpu().numpy()
+    return float(np.mean((pred - exact) ** 2))

@@ -1,6 +1,7 @@
 """The port's command line (qcpinn_tpu_torch/cli.py) at toy width on the
-CPU (``main(argv, device="cpu")``): every problem with both ported
-solvers, --best-val and the loss balancers, the JAX CLI's flags and
+CPU (``main(argv, device="cpu")``): every problem with the DV and
+Classical solvers, the CV solver's run, ``crystal``'s run, --best-val and
+the loss balancers, the JAX CLI's flags (``train`` and ``crystal``) and
 --metrics-json keys, the run directory, and the options that wait for
 later items."""
 
@@ -102,20 +103,20 @@ def test_plots_and_diagram(tmp_path):
     assert text.startswith("ansatz=cascade n=2 layers=1") and "q 0:" in text
 
 
-def test_flags_match_the_jax_cli():
-    want = vars(jcli.build_parser().parse_args(["train"]))
-    got = vars(cli.build_parser().parse_args(["train"]))
+@pytest.mark.parametrize("command", ["train", "crystal"])
+def test_flags_match_the_jax_cli(command):
+    """The subcommand's flags, defaults and choices are the JAX CLI's."""
+    want = vars(jcli.build_parser().parse_args([command]))
+    got = vars(cli.build_parser().parse_args([command]))
     assert got == want
-    jt = jcli.build_parser()._subparsers._group_actions[0].choices["train"]
-    tt = cli.build_parser()._subparsers._group_actions[0].choices["train"]
+    jt = jcli.build_parser()._subparsers._group_actions[0].choices[command]
+    tt = cli.build_parser()._subparsers._group_actions[0].choices[command]
     choices = {a.dest: a.choices for a in jt._actions}
     assert {a.dest: a.choices for a in tt._actions} == choices
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["train", "--solver", "CV"], "the CV solver"),
     (["train", "--data-parallel"], "parallel"),
-    (["crystal", "--spsa-steps", "5"], "crystal and SI-gated"),
     (["cz", "--phase", "pretrain", "--data", "x", "--amp", "2"], "Czochralski flagship"),
 ])
 def test_unported_options_raise(argv, match, tmp_path):
@@ -126,6 +127,57 @@ def test_unported_options_raise(argv, match, tmp_path):
 
 
 JAX_METRICS_KEYS = {"command", "config", "metrics", "final_loss", "trainable_params"}
+
+
+@pytest.mark.parametrize("cv_class", [1, 3])
+def test_cv_solver_runs(cv_class, tmp_path):
+    """``train --solver CV`` (2 qumodes, cutoff 3): the metrics JSON with
+    the JAX CLI's keys (its CV records' set), the CV diagram in the run
+    directory, the solver's trainable count."""
+    m = _run(tmp_path, "--solver", "CV", "--cutoff-dim", "3", "--cv-class", str(cv_class),
+             "--epochs", "2")
+    with open(os.path.join(os.path.dirname(__file__), "..", "artifacts",
+                           "cv_diffusion_class1.json")) as f:
+        assert set(json.load(f)) == JAX_METRICS_KEYS == set(m)
+    assert m["config"]["solver"] == "CV" and m["config"]["cv_class"] == cv_class
+    assert all(math.isfinite(v) for v in [m["final_loss"], *m["metrics"].values()])
+    # pre 3-4-2, post 2-4-1, the layer's 2 x 3 interferometer angles and
+    # 5 x 2 gate parameters (+ 2 cubic, 4 cross-Kerr, 4 input scale/phase)
+    assert m["trainable_params"] == 26 + 17 + 16 + (10 if cv_class == 3 else 0)
+    run = _run_dir(tmp_path)
+    text = (run / "circuit.txt").read_text()
+    assert text.startswith(f"CV circuit: variant {cv_class}, 2 qumodes, 1 layers, cutoff 3")
+    log = (run / "output.log").read_text()
+    assert "CV circuit diagram written (circuit.txt / circuit.pdf)" in log
+    assert "Epoch: 2/2 | Loss: " in log
+
+
+def test_cv_solver_keeps_jax_refusal_of_parameter_shift(tmp_path):
+    """The CV solver has no hardware apply: parameter-shift raises, as in
+    JAX; spsa trains it."""
+    with pytest.raises(ValueError, match="needs a solver with a hardware apply"):
+        _run(tmp_path, "--solver", "CV", "--cutoff-dim", "3", "--gradient-mode",
+             "parameter-shift")
+    m = _run(tmp_path, "--solver", "CV", "--cutoff-dim", "3", "--gradient-mode", "spsa",
+             "--epochs", "2")
+    assert m["config"]["gradient_mode"] == "spsa" and math.isfinite(m["final_loss"])
+
+
+def test_crystal_runs_and_writes_its_artifact(tmp_path):
+    """``crystal`` (2 qubits, 1 layer, warmup and spsa): the artifact with
+    the JAX CLI's summary keys, the run directory's log."""
+    art = str(tmp_path / "crystal.json")
+    argv = ["crystal", "--n-qubits", "2", "--n-layers", "1", "--spsa-steps", "3",
+            "--warmup-epochs", "1", "--n-bulk", "4", "--n-interface", "4",
+            "--output-dir", str(tmp_path / "runs"), "--artifact", art]
+    assert cli.main(argv, device="cpu") == 0
+    with open(art) as f:
+        m = json.load(f)
+    assert set(m) == {"config", "params_total", "params_quantum", "warmup_history",
+                      "spsa_history", "spsa_first5_mean", "spsa_last5_mean"}
+    assert len(m["spsa_history"]) == 3 and m["params_quantum"] == 6
+    log = (_run_dir(tmp_path) / "output.log").read_text()
+    assert "[SPSA] step 3/3 | crystal loss: " in log and "artifact written to " in log
 
 
 @pytest.mark.parametrize("flags", [

@@ -14,10 +14,11 @@ import torch
 from qcpinn_tpu.data.cz_loader import DataStats as JStats
 from qcpinn_tpu.models.czochralski import Hybrid16QPINN as JModel
 from qcpinn_tpu.train import cz_pipeline as jp
-from qcpinn_tpu_torch.bridge import params_from_jax, params_to_jax
+from qcpinn_tpu_torch.bridge import grads_to_jax_layout, params_from_jax, params_to_jax
 from qcpinn_tpu_torch.data.cz_loader import DataStats
 from qcpinn_tpu_torch.models.czochralski import Hybrid16QPINN
 from qcpinn_tpu_torch.train import cz_pipeline as tp
+from qcpinn_tpu_torch.train import optim as topt
 
 STATS = dict(length_scale=1.0, velocity_scale=1.0, pressure_scale=1.0, temp_min=0.0,
              temp_max=1.0, pressure_coeff=3.0)
@@ -46,23 +47,44 @@ def _leaves_close(got: dict, want: dict, tol):
         np.testing.assert_allclose(a, np.asarray(b), rtol=0, atol=tol * scale)
 
 
+def _grads_close(model, grads, want: dict, tol=2e-4):
+    """The gradients ``grads`` of ``model``'s trainable tensors, in the JAX
+    tree's layout (zero for a buffer, as JAX's stop_gradient gives it),
+    leaf by leaf within ``tol`` x the largest |leaf| of ``want``."""
+    params = [p for p in model.parameters() if p.requires_grad]
+    for p, g in zip(params, grads):
+        p.grad = g.detach()
+    got = grads_to_jax_layout(model)
+    for p in params:
+        p.grad = None
+    g, w = jax.tree_util.tree_leaves(got), jax.tree_util.tree_leaves(want)
+    assert len(g) == len(w)
+    for a, b in zip(g, w):
+        b = np.asarray(b)
+        np.testing.assert_allclose(a, b, rtol=0, atol=tol * float(np.abs(b).max()))
+
+
 @pytest.mark.parametrize("norm,weight", [("reference", 0.05), ("balanced", 0.05),
                                          ("coupled", 0.05), ("reference", 0.0)])
 def test_pretrain_step_matches_jax(norm, weight):
     """One step from shared params on one batch (JAX's epoch of a single
     batch, its rows in JAX's shuffled order) against the port's
     ``step_fn``, physics engaged (warmup 0, ramp 1) or the data-only mode
-    (weight 0): loss rtol 2e-5; the EMA state rtol 1e-4; params after the
-    step within 2e-4 x the largest |param|. (Adam's first update is
-    lr g / (|g| + eps): the to_quantum biases' gradients sit near eps at
-    this size, so a leafwise scale would read float noise in g as error.)"""
+    (weight 0): loss rtol 2e-5; the EMA state rtol 1e-4; the gradients
+    before the step, as JAX's Adam receives them (clipped by global norm
+    1.0: its first moment after one step over 1 - b1), each leaf within
+    2e-4 x max|ref| of that leaf; params after the step within 2e-4 x the
+    largest |param|. (Adam's first update is lr g / (|g| + eps): the
+    to_quantum biases' gradients sit near eps at this size, so a leafwise
+    scale on the parameters would read float noise in g as error; the
+    gradients themselves are held leaf by leaf.)"""
     b = 8
     X, Y = _data(b)
-    cfg = dict(n_qubits=2, n_layers=1, epochs=4, batch_size=b, physics_weight=weight,
+    cfg = dict(n_qubits=3, n_layers=1, epochs=4, batch_size=b, physics_weight=weight,
                physics_warmup=0, physics_ramp=1, physics_normalize=norm, seed=0)
-    jm = JModel(2, 1, width=4, remat=False)
+    jm = JModel(3, 1, width=4, remat=False)
     params = jm.init(jax.random.PRNGKey(3))
-    tm = _model()
+    tm = _model(n=3)
     if norm == "coupled":
         from qcpinn_tpu.models.si_gated import coupled_weighting_init as j_init
         from qcpinn_tpu_torch.models.si_gated import coupled_weighting_init
@@ -73,14 +95,22 @@ def test_pretrain_step_matches_jax(norm, weight):
     opt, epoch_fn, _ = jp.make_pretrain_epoch(jm, X, Y, JStats(**STATS), jp.CzConfig(**cfg))
     ema = {k: jnp.asarray(1.0) for k in tp.EMA_KEYS}
     key = jax.random.PRNGKey(0)
-    want, _, want_ema, m = epoch_fn(params, opt.init(params), ema,
-                                    jnp.asarray(1.0, jnp.float32), key)
+    want, want_opt, want_ema, m = epoch_fn(params, opt.init(params), ema,
+                                           jnp.asarray(1.0, jnp.float32), key)
+    (adam_state,) = [st for st in want_opt if hasattr(st, "mu")]
+    want_grads = jax.tree_util.tree_map(lambda v: np.asarray(v) / (1.0 - topt.B1),
+                                        adam_state.mu)
 
     ep = tp.make_pretrain_epoch(tm, X, Y, DataStats(**STATS), tp.CzConfig(**cfg))
     assert ep.n_batches == 1 and ep.data_only == (weight == 0.0)
     perm = np.asarray(jax.random.permutation(key, b))
-    out = ep.step_fn(torch.tensor(X[perm]), torch.tensor(Y[perm]),
-                     tp._phys_weight(ep.cfg, 1.0), tp._cosine_lr(ep.cfg.lr, 1.0, ep.cfg.epochs))
+    xb, yb = torch.tensor(X[perm]), torch.tensor(Y[perm])
+    phys_w = tp._phys_weight(ep.cfg, 1.0)
+    total = ep.batch_loss(xb, yb, phys_w)[0]
+    grads = torch.autograd.grad(total, ep.params, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(ep.params, grads)]
+    _grads_close(tm, topt.clip_grads(grads, 1.0)[0], want_grads)
+    out = ep.step_fn(xb, yb, phys_w, tp._cosine_lr(ep.cfg.lr, 1.0, ep.cfg.epochs))
     np.testing.assert_allclose(float(out[0]), float(m["loss"]), rtol=2e-5)
     np.testing.assert_allclose(float(out[1]), float(m["data"]), rtol=2e-5)
     np.testing.assert_allclose(float(out[2]), float(m["phys"]), rtol=2e-5, atol=1e-30)
@@ -217,17 +247,39 @@ def test_chunked_residual_under_remat_gives_the_same_step(monkeypatch):
 
 def test_full_scope_finetune_matches_jax():
     """Exact readout (shots=None), full scope: the parameter-shift backward
-    and Adam at finetune_lr, 2 epochs, against JAX's run_finetune: the loss
-    history rtol 1e-4, the params after within 2e-4 x the largest |param|."""
+    and Adam at finetune_lr, 2 epochs, against JAX's run_finetune: the
+    gradients of the first step's loss (JAX's loss of run_finetune on the
+    calibration subset, its parameter-shift apply) each leaf within 2e-4 x
+    max|ref| of that leaf; the loss history rtol 1e-4, the params after
+    within 2e-4 x the largest |param|."""
+    from qcpinn_tpu.data.cz_loader import choose_calibration_subset
+    from qcpinn_tpu.ops.measure import NoiseModel
+    from qcpinn_tpu.train.hardware_grad import make_hw_apply_cz
+
     X, Y = _data(30, seed=1)
-    cfg = dict(n_qubits=2, n_layers=1, finetune_epochs=2, calib_size=4, shots=None,
+    cfg = dict(n_qubits=3, n_layers=1, finetune_epochs=2, calib_size=4, shots=None,
                train_scope="full", finetune_lr=1e-2, noise_readout=0.02)
-    jm = JModel(2, 1, width=4, remat=False)
+    jm = JModel(3, 1, width=4, remat=False)
     params = jm.init(jax.random.PRNGKey(4))
+    x_c, y_c = choose_calibration_subset(X, Y, cfg["calib_size"])
+    noise = NoiseModel(0.0, cfg["noise_readout"], 0.0)
+    q_apply = make_hw_apply_cz(jm.q, None, noise=noise)
+
+    def j_loss(p):
+        pred = jm.apply(p, jnp.asarray(x_c), shots=None, key=jax.random.PRNGKey(0),
+                        noise=noise, detach_quantum=False, q_apply=q_apply)
+        return jnp.mean((pred - jnp.asarray(y_c)) ** 2)
+
+    want_grads = jax.tree_util.tree_map(np.asarray, jax.grad(j_loss)(params))
+    tree = jax.tree_util.tree_map(np.asarray, params)
+    first = _model(tree, n=3)
+    ft = tp.FinetuneStep(first, X, Y, tp.CzConfig(**cfg), torch.Generator())
+    loss = ft.loss()
+    np.testing.assert_allclose(float(loss), float(j_loss(params)), rtol=2e-5)
+    _grads_close(first, torch.autograd.grad(loss, ft.params), want_grads)
     want, jhist = jp.run_finetune(jm, params, X, Y, JStats(**STATS), jp.CzConfig(**cfg),
                                   logger=type("L", (), {"print": lambda self, m: None})())
-    tree = jax.tree_util.tree_map(np.asarray, params)
-    m, hist = tp.run_finetune(_model(), tree, X, Y, DataStats(**STATS), tp.CzConfig(**cfg),
+    m, hist = tp.run_finetune(_model(n=3), tree, X, Y, DataStats(**STATS), tp.CzConfig(**cfg),
                               logger=type("L", (), {"print": lambda self, m: None})())
     np.testing.assert_allclose(hist, jhist, rtol=1e-4)
     _leaves_close(params_to_jax(m), jax.tree_util.tree_map(np.asarray, want), 2e-4)

@@ -32,6 +32,10 @@ def _modules():
 def test_every_module_imports_without_jax():
     mods = _modules()
     assert "qcpinn_tpu_torch.ops.block_kernel" in mods and len(mods) >= 15
+    assert {"qcpinn_tpu_torch.ops.fock", "qcpinn_tpu_torch.models.cv_layer",
+            "qcpinn_tpu_torch.models.cv_solver", "qcpinn_tpu_torch.models.crystal",
+            "qcpinn_tpu_torch.models.si_gated", "qcpinn_tpu_torch.physics.phase_field",
+            "qcpinn_tpu_torch.train.crystal"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -382,7 +386,7 @@ def test_no_refusal_names_the_hardware_modes():
                     for m in refusal.finditer(fh.read()):
                         seen += 1
                         assert "hardware-fidelity" not in m.group(0), (f, m.group(0))
-    assert seen >= 4  # the CV solver, parallel (train, cz, the Cz model), crystal
+    assert seen >= 4  # parallel: cli train and cz, train(), the Cz model and pipeline
 
 
 def test_hardware_modes_default_to_the_card(monkeypatch, tmp_path):
@@ -429,3 +433,36 @@ def test_cz_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     m = evaluate_cz_fields(model, X, Y, batch=2, device="cpu")
     assert set(m) == {"val_mse", "rel_l2_u_r_percent", "rel_l2_u_z_percent",
                       "rel_l2_u_theta_percent", "rel_l2_p_percent", "rel_l2_T_percent"}
+
+
+def test_cv_and_crystal_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """``cli train --solver CV``, ``cli crystal``, ``CVSolver``,
+    ``CrystalPINN``, ``train_crystal`` and ``mse_at_time_slice`` default to
+    the card and raise without CUDA, before any run directory is made; they
+    run on the CPU only when asked (``device="cpu"``)."""
+    from qcpinn_tpu_torch import cli
+    from qcpinn_tpu_torch.config import QCPINNConfig
+    from qcpinn_tpu_torch.data import diffusion as dd
+    from qcpinn_tpu_torch.models import CrystalPINN, CVSolver
+    from qcpinn_tpu_torch.train.crystal import CrystalConfig, train_crystal
+    from qcpinn_tpu_torch.utils.evaluation import mse_at_time_slice
+
+    cfg = QCPINNConfig(solver="CV", num_qubits=2, cutoff_dim=3, classic_network=(3, 4, 1))
+    cpu_model = CrystalPINN(2, 1, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for argv in (["train", "--solver", "CV"], ["crystal"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main([*argv, "--output-dir", str(tmp_path / "runs")])
+    assert not (tmp_path / "runs").exists()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CVSolver(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CrystalPINN(2, 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_crystal(cpu_model, CrystalConfig(n_qubits=2, n_layers=1, spsa_steps=1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mse_at_time_slice(CVSolver(cfg, device="cpu"), dd.u, num=2)
+    _, hist = train_crystal(cpu_model, CrystalConfig(n_qubits=2, n_layers=1, spsa_steps=1,
+                                                      n_bulk=2, n_interface=2), device="cpu")
+    assert len(hist["spsa_history"]) == 1
+

@@ -302,3 +302,40 @@ def test_unported_modes_raise():
     with pytest.raises(ValueError, match="train on"):
         train(TDV(cfg, device="cpu"), cfg, terms, diffusion_operator, device="meta")
     assert TTerm is not None and JTerm is not None
+
+
+def test_mse_at_time_slice_matches_jax():
+    """The MSE on the t = 0.5 spatial grid (JAX's utils.mse_at_time_slice),
+    the same weights in both packages: rtol 1e-5."""
+    from qcpinn_tpu.utils import mse_at_time_slice as j_mse
+    from qcpinn_tpu_torch.utils import mse_at_time_slice
+
+    jm, params, tm = _models("Classical")
+    for t, num in ((0.5, 6), (0.2, 4)):
+        want = j_mse(jm.apply, params, jdd.u, t=t, num=num)
+        got = mse_at_time_slice(tm, tdd.u, t=t, num=num, device="cpu")
+        np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+def test_profile_hook_writes_a_trace(monkeypatch, tmp_path):
+    """QCPINN_PROFILE_DIR (JAX's jax.profiler hook of train()): the loop runs
+    under torch.profiler and one Chrome trace is written there; unset, none."""
+    import json as _json
+    import os
+
+    cfg = _cfg(TConfig, "Classical", epochs=2, print_every=1)
+    trace_dir = tmp_path / "trace"
+    monkeypatch.setenv("QCPINN_PROFILE_DIR", str(trace_dir))
+    log = _Log()
+    train(TClassical(cfg, device="cpu"), cfg, _terms(False), t_get_operator("diffusion", "rev"),
+          logger=log, device="cpu")
+    (name,) = os.listdir(trace_dir)
+    assert name.startswith("train-") and name.endswith(".pt.trace.json")
+    with open(trace_dir / name) as f:
+        assert _json.load(f)["traceEvents"]
+    assert log.lines[-1] == f"profiler trace written to {trace_dir}"
+    monkeypatch.delenv("QCPINN_PROFILE_DIR")
+    log = _Log()
+    train(TClassical(cfg, device="cpu"), cfg, _terms(False), t_get_operator("diffusion", "rev"),
+          logger=log, device="cpu")
+    assert not any("profiler" in line for line in log.lines)
