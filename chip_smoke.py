@@ -218,6 +218,24 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                (CRYSTAL_INIT), its last-five SPSA loss mean within JAX's
                factor 2 of the record's (2.697e-4); a shorter spsa-split run
                through ``cli crystal`` (2,669 parameters, 36 quantum).
+6j. parallel   the ('data', 'amp') mesh as a one-rank NCCL
+               world (no kernel; every counter 0): ``cli train`` on CLI_RUNS' DV
+               cascade 4q config, its graphed step with the mesh against
+               without (5 steps, losses and parameters; ms a step of each in
+               turns; the collectives' counters: the gradient all-reduce
+               issued by every step that runs through Python, the capture
+               included, and by no replay), then ``cli.main``
+               with and without ``--data-parallel`` for 5 epochs; the
+               wide384_400 pretrain step (16q, trunk 384, B = 256) graphed
+               with the mesh against without (5 steps, bit-equal or within
+               1e-6 relative; both epochs freed by their reference counts,
+               graphs and pools with them); ``cz --phase eval`` of that checkpoint on the
+               18,108 real nodes with and without ``--data-parallel``;
+               ``DVSolver.use_sharded`` (gate and block) at amp 1 on the 12q
+               cross_mesh bench shapes (B = 1024, the 6144-row stream batch
+               through the sharded evolve), one forward and backward
+               against the plain block engine at JAX's limits (5e-5,
+               2e-4 x max|ref|), ms of each.
 16. cluster_kernels the cluster pair (K1/K2 at 13-16 qubits) and K2b at 16
                qubits with B = 1536 stream rows and B = 425 value rows, and
                at 13 qubits with the same batches: against the plain
@@ -262,6 +280,7 @@ Measurements beside the smoke test:
     python3 chip_smoke.py --cv-records         # JAX's CV records' three commands in
                                                # full and the crystal config, each
                                                # within JAX's factor 2
+    python3 chip_smoke.py --parallel           # device, parallel
 """
 
 import json
@@ -272,6 +291,7 @@ import statistics
 import subprocess
 import sys
 import time
+import weakref
 
 STEPS = 30
 TIME_REPS = 20
@@ -1413,7 +1433,7 @@ class CliStepper:
     stage's ``run_steps`` (the captured graph) or, with ``eager``, through
     ``step_fn``; both return the loss of each step."""
 
-    def __init__(self, flags, dev, eager=False):
+    def __init__(self, flags, dev, eager=False, mesh=None):
         from qcpinn_tpu_torch import cli
         from qcpinn_tpu_torch.train.loop import train_stage
 
@@ -1422,7 +1442,7 @@ class CliStepper:
         self.model = cli.make_model(cfg, dev)
         terms, operator, _, _ = cli.make_problem(args.problem, cfg)
         self.stage, _ = train_stage(self.model, cfg, terms, operator, dev,
-                                    log=lambda msg: None)
+                                    log=lambda msg: None, mesh=mesh)
         self.eager = eager
 
     @property
@@ -2087,9 +2107,10 @@ def cz_tree(ckpt):
     return load_checkpoint(ckpt, Hybrid16QPINN(CZ_QUBITS, 2, width=CZ_WIDTH, device="cpu"))
 
 
-def cz_pretrain_epoch(dev, tree, X, Y, stats, batch, remat):
+def cz_pretrain_epoch(dev, tree, X, Y, stats, batch, remat, mesh=None):
     """A PretrainEpoch of the wide384_400 command on a model loaded with
-    ``tree``, its lr and physics weight those of epoch CZ_EPOCH."""
+    ``tree``, its lr and physics weight those of epoch CZ_EPOCH
+    (data-parallel over ``mesh`` when given)."""
     from qcpinn_tpu_torch.bridge import params_from_jax
     from qcpinn_tpu_torch.models.czochralski import Hybrid16QPINN
     from qcpinn_tpu_torch.train import cz_pipeline as cp
@@ -2098,7 +2119,7 @@ def cz_pretrain_epoch(dev, tree, X, Y, stats, batch, remat):
     model.load_state_dict(params_from_jax(tree))
     cfg = cp.CzConfig(**{**CZ_PRETRAIN, "n_qubits": CZ_QUBITS, "batch_size": batch,
                          "remat": remat})
-    ep = cp.make_pretrain_epoch(model, X, Y, stats, cfg)
+    ep = cp.make_pretrain_epoch(model, X, Y, stats, cfg, mesh=mesh)
     ep.phys_w.fill_(cp._phys_weight(cfg, CZ_EPOCH))
     ep.lr.fill_(cp._cosine_lr(cfg.lr, CZ_EPOCH, cfg.epochs))
     return model, ep
@@ -2746,6 +2767,269 @@ def cv_records_check():
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     if out_of_band:
         raise SystemExit(f"cv records outside JAX's factor 2: {out_of_band}")
+
+
+# -- the parallel layer on a one-rank NCCL world (phase parallel, --parallel) --
+
+PAR_FLAGS = CLI_RUNS[0][1]  # BASELINE.json's DV cascade 4q config, hidden 50
+PAR_STEPS = 5  # graphed steps each way: 3 eager warm-ups, the capture, a replay
+PAR_EPOCHS = 5  # the cli train runs, with and without --data-parallel
+PAR_ENGINE_BATCH = 1024  # the 12q bench's points, a 6144-row stream batch
+PAR_ENGINE_REPS = 3
+
+
+def par_timed(fn, n):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(n)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / n
+
+
+def par_cli_train(dev, mesh, out_root):
+    """``cli train`` on PAR_FLAGS: its graphed step with the mesh against
+    without (PAR_STEPS steps from the same seed: losses and parameters),
+    ms a step of each over GRAPH_TIME_STEPS more replays in turns; then
+    ``cli.main`` with and without
+    ``--data-parallel`` for PAR_EPOCHS epochs, their metrics. The
+    collectives' counters: every step that runs through Python (the eager
+    warm-ups and the capture) issues the gradient all-reduce once, the
+    replays none, so the captured graph holds it."""
+    import torch
+
+    from qcpinn_tpu_torch.parallel.collectives import CALLS
+    from qcpinn_tpu_torch.train.loop import WARMUP_STEPS
+
+    plain = CliStepper(PAR_FLAGS, dev)
+    CALLS.clear()
+    dp = CliStepper(PAR_FLAGS, dev, mesh=mesh)
+    l_plain, l_dp = plain.steps(PAR_STEPS).tolist(), dp.steps(PAR_STEPS).tolist()
+    calls = dict(CALLS)
+    want = dict(plain.model.named_parameters())
+    diff = max(max(abs(a - b) for a, b in zip(l_dp, l_plain)),
+               max((p - want[k]).abs().max().item() for k, p in dp.model.named_parameters()))
+    ms = [par_timed(st.steps, GRAPH_TIME_STEPS) for st in (plain, dp, dp, plain)]
+    g = dp.graph
+    row = {"flags": PAR_FLAGS, "steps": PAR_STEPS, "losses": l_dp, "losses_plain": l_plain,
+           "max_abs_diff": diff, "bit_equal": l_dp == l_plain and diff == 0.0,
+           "graph_ms_per_step_plain": [ms[0], ms[3]], "graph_ms_per_step_dp": [ms[1], ms[2]],
+           "eager_steps": g.eager_steps, "captured": g.captured, "replays": g.replays,
+           "collective_calls": calls, "collective_calls_after_replays": dict(CALLS)}
+    python_steps = WARMUP_STEPS + 1
+    if not (g.captured == 1 and g.eager_steps == WARMUP_STEPS
+            and calls.get("mean_grads") == python_steps
+            and calls.get("psum", 0) % python_steps == 0 and dict(CALLS) == calls):
+        raise SystemExit(f"parallel cli_train: the step with the mesh was not captured "
+                         f"with its all-reduce: {row}")
+    del plain, dp, g
+    torch.cuda.empty_cache()
+    metrics = {}
+    for tag, extra in (("plain", []), ("dp", ["--data-parallel"])):
+        path = os.path.join(out_root, f"par_{tag}.json")
+        argv = ["train", *PAR_FLAGS, "--epochs", str(PAR_EPOCHS), "--print-every",
+                str(PAR_EPOCHS), "--eval-grid", "10", "--no-plots", "--output-dir", out_root,
+                "--run-name", f"par_{tag}", "--metrics-json", path, *extra]
+        reset_kernel_counters()
+        rc, _, seconds = cz_cli(argv)
+        counters = kernel_counters()
+        if rc != 0 or any(counters.values()):
+            raise SystemExit(f"parallel cli train {tag}: exit code {rc}, counters {counters}")
+        with open(path) as f:
+            m = json.load(f)
+        metrics[tag] = {"seconds": seconds, "final_loss": m["final_loss"], **m["metrics"]}
+    row["cli"] = metrics
+    row["cli_max_rel_diff"] = max(abs(metrics["dp"][k] - v) / max(abs(v), 1e-30)
+                                  for k, v in metrics["plain"].items() if k != "seconds")
+    return row
+
+
+def par_cz_pretrain(dev, mesh):
+    """The wide384_400 command's pretrain step (16q, trunk 384, B = 256),
+    graphed, with the mesh (``--data-parallel``) against without, on the
+    same PAR_STEPS batches: losses, parameters and EMA state; ms a step of
+    each in turns."""
+    import torch
+
+    from qcpinn_tpu_torch.data.cz_loader import DataStats, load_cz_data
+
+    restored = cz_tree(CZ_CKPT)
+    stats = DataStats.from_dict(restored["stats"])
+    X, Y, _ = load_cz_data(CZ_DATA, stats)
+    tree = restored["bundle"]["params"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    perm = torch.randperm(len(X), generator=gen, device=dev)
+    Xd, Yd = torch.as_tensor(X, device=dev)[perm], torch.as_tensor(Y, device=dev)[perm]
+    b = CZ_PRETRAIN["batch_size"]
+
+    def steps(ep, n, start=0):
+        out = []
+        for i in range(start, start + n):
+            ep.xb.copy_(Xd[i * b:(i + 1) * b])
+            ep.yb.copy_(Yd[i * b:(i + 1) * b])
+            out.append(ep._step().clone())
+        return torch.stack(out)
+
+    from qcpinn_tpu_torch.parallel.collectives import CALLS
+
+    runs = {}
+    for tag, m in (("plain", None), ("dp", mesh)):
+        CALLS.clear()
+        model, ep = cz_pretrain_epoch(dev, tree, X, Y, stats, b, False, mesh=m)
+        runs[tag] = (model, ep, steps(ep, PAR_STEPS))
+    calls = dict(CALLS)
+    (m0, e0, l0), (m1, e1, l1) = runs["plain"], runs["dp"]
+    want = dict(m0.named_parameters())
+    diff = max((l1 - l0).abs().max().item(),
+               max((p - want[k]).abs().max().item() for k, p in m1.named_parameters()))
+    bit_equal = diff == 0.0 and all(torch.equal(e1.ema[k], e0.ema[k]) for k in e0.ema)
+    ms = [par_timed(lambda n, e=e: steps(e, n, PAR_STEPS), 3) for e in (e0, e1, e1, e0)]
+    row = {"batch": b, "width": CZ_WIDTH, "n_qubits": CZ_QUBITS, "steps": PAR_STEPS,
+           "losses": l1[:, 0].tolist(), "max_abs_diff": diff, "bit_equal": bit_equal,
+           "graph_ms_per_step_plain": [ms[0], ms[3]], "graph_ms_per_step_dp": [ms[1], ms[2]],
+           "eager_steps": e1.captured.eager_steps, "captured": e1.captured.captured,
+           "collective_calls": calls, "collective_calls_after_replays": dict(CALLS)}
+    python_steps = e1.captured.eager_steps + 1
+    if not (torch.isfinite(l1).all() and e1.captured.captured == 1
+            and calls.get("mean_grads") == python_steps and dict(CALLS) == calls):
+        raise SystemExit(f"parallel cz pretrain: {row}")
+    # the graphs and their memory pools go with the epochs, by reference
+    # counts alone (a CapturedStep holds its owner's method weakly)
+    refs = [weakref.ref(e) for e in (e0, e1)]
+    del runs, m0, m1, e0, e1, model, ep
+    if any(r() is not None for r in refs):
+        raise SystemExit("parallel cz pretrain: a PretrainEpoch outlived its last "
+                         "reference (a reference cycle holds its graph)")
+    torch.cuda.empty_cache()
+    row["reserved_gb_after_free"] = torch.cuda.memory_reserved() / 1e9
+    return row
+
+
+def par_cz_eval(out_root):
+    """``cz --phase eval`` of the wide384_400 checkpoint on the 18,108 real
+    nodes with and without ``--data-parallel``: the metrics alike."""
+    flags = ["--n-qubits", str(CZ_QUBITS), "--trunk-width", str(CZ_WIDTH)]
+    rows = {tag: cz_eval(CZ_CKPT, flags + extra, out_root)
+            for tag, extra in (("plain", []), ("dp", ["--data-parallel"]))}
+    a, b = rows["plain"]["metrics"], rows["dp"]["metrics"]
+    return {"seconds": {k: r["seconds"] for k, r in rows.items()}, "metrics": b,
+            "max_rel_diff": max(abs(b[k] - v) / max(abs(v), 1e-30) for k, v in a.items()),
+            "bit_equal": a == b, "within_jax_cpu_eval": rows["dp"]["within_tolerance"]}
+
+
+def par_engines(dev, mesh):
+    """``DVSolver.use_sharded(mesh, backend=...)`` at amp 1 on the 12q
+    cross_mesh bench shapes (B = 1024 points, the 6144-row stream batch
+    through the sharded evolve), one forward (the model and the streams
+    residual) and one backward of sum(out^2) + sum(r^2), against the plain
+    block engine: forward within 5e-5, every gradient within 2e-4 x
+    max|ref| (JAX's sharded limits); ms of a forward and backward each."""
+    import torch
+
+    from qcpinn_tpu_torch.config import QCPINNConfig
+    from qcpinn_tpu_torch.models import DVSolver
+    from qcpinn_tpu_torch.physics.streams import dv_diffusion_residual_streams
+
+    cfg = QCPINNConfig(num_qubits=12, num_quantum_layers=1, q_ansatz="cross_mesh",
+                       classic_network=(3, 50, 1), seed=42)
+    x = torch.rand((PAR_ENGINE_BATCH, 3), generator=torch.Generator().manual_seed(1)).to(dev)
+
+    def run(model):
+        for p in model.parameters():
+            p.grad = None
+        out = model(x)
+        _, r = dv_diffusion_residual_streams(model, x)
+        ((out ** 2).sum() + (r ** 2).sum()).backward()
+        return out.detach(), r.detach(), {k: p.grad.clone() for k, p in model.named_parameters()
+                                           if p.grad is not None}
+
+    models = {"local": DVSolver(cfg, device=dev).use_fused("block"),
+              "gate": DVSolver(cfg, device=dev).use_sharded(mesh, backend="gate"),
+              "block": DVSolver(cfg, device=dev).use_sharded(mesh, backend="block")}
+    ref = run(models["local"])
+    rows = {}
+    for tag in ("gate", "block"):
+        out, r, grads = run(models[tag])
+        fwd = max((out - ref[0]).abs().max().item(), (r - ref[1]).abs().max().item())
+        worst = max((g - ref[2][k]).abs().max().item() / max(ref[2][k].abs().max().item(), 1e-30)
+                    for k, g in grads.items())
+        rows[tag] = {"forward_max_abs_err": fwd, "grad_max_err_over_scale": worst,
+                     "tol": {"forward": 5e-5, "grads": "2e-4*max|ref|"}}
+        if not (fwd <= 5e-5 and worst <= 2e-4):
+            raise SystemExit(f"parallel engine {tag}: {rows[tag]}")
+    order = ("local", "gate", "block", "block", "gate", "local")
+    ms = {k: [] for k in models}
+    for tag in order:
+        ms[tag].append(par_timed(lambda n, m=models[tag]: [run(m) for _ in range(n)],
+                                 PAR_ENGINE_REPS))
+    for tag in rows:
+        rows[tag]["ms_fwd_bwd"] = ms[tag]
+    rows["local_ms_fwd_bwd"] = ms["local"]
+    del models
+    torch.cuda.empty_cache()
+    return rows
+
+
+def parallel_phase(dev, smi):
+    """Phase ``parallel`` (docstring, 6j): the ('data', 'amp') mesh as a
+    one-rank NCCL world at full width; every kernel counter 0 (no kernel of
+    the package on these paths)."""
+    import torch
+    import torch.distributed as dist
+
+    from qcpinn_tpu_torch.parallel import make_mesh
+
+    t0 = time.perf_counter()
+    out_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "runs", "chip_smoke")
+    os.makedirs(out_root, exist_ok=True)
+    mesh = make_mesh(device=dev)
+    if mesh.backend != "nccl" or mesh.shape != {"data": 1, "amp": 1}:
+        raise SystemExit(f"parallel: {mesh}")
+    try:
+        reset_kernel_counters()
+        row = {"mesh": mesh.shape, "backend": mesh.backend, "card": smi,
+               "cli_train": par_cli_train(dev, mesh, out_root),
+               "cz_pretrain": par_cz_pretrain(dev, mesh),
+               "cz_eval": par_cz_eval(out_root),
+               "engines_12q": par_engines(dev, mesh)}
+        counters = kernel_counters()
+        if any(counters.values()):
+            raise SystemExit(f"parallel: kernels launched on this path: {counters}")
+        row["kernel_counters"] = f"all {len(counters)} at 0"
+        for tag in ("cli_train", "cz_pretrain"):
+            r = row[tag]
+            if not r["max_abs_diff"] <= 1e-6 * max(abs(v) for v in r["losses"]):
+                raise SystemExit(f"parallel {tag}: the mesh run differs: {r}")
+        if not row["cz_eval"]["max_rel_diff"] <= 1e-6:
+            raise SystemExit(f"parallel cz_eval: {row['cz_eval']}")
+    finally:
+        dist.destroy_process_group()
+    row["seconds"] = time.perf_counter() - t0
+    emit({"phase": "parallel", **row})
+    torch.cuda.empty_cache()
+
+
+def parallel_check():
+    """``--parallel``: the device checks, then the parallel phase alone (no
+    kernel is built: the path runs none)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import qcpinn_tpu_torch  # noqa: F401  (sets TF32 off)
+
+    t_start = time.perf_counter()
+    smi = nvidia_smi_line()
+    name = torch.cuda.get_device_name(0)
+    emit({"phase": "device", "name": name, "nvidia_smi": smi, "torch": torch.__version__,
+          "cuda": torch.version.cuda, "count": torch.cuda.device_count()})
+    parallel_phase(torch.device("cuda"), smi)
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                 "count": torch.cuda.device_count()}})
 
 
 def stage2_rate(tree: str):
@@ -3762,6 +4046,8 @@ def main():
         return cv_crystal_check()
     if sys.argv[1:] == ["--cv-records"]:
         return cv_records_check()
+    if sys.argv[1:] == ["--parallel"]:
+        return parallel_check()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -3914,6 +4200,9 @@ def main():
     crystal_phase(dev, smi)
     torch.cuda.empty_cache()
 
+    # -- 6j. the parallel layer on a one-rank NCCL world (no kernel) ---------
+    parallel_phase(dev, smi)
+
     # -- 7-10. the 16q north-star path through the gate-loop kernels ---------
     loop_results = loop_phases(dev, gen, card_peaks, smi,
                                ptxas_registers(built["gate_loop"][2]), floor)
@@ -3935,6 +4224,7 @@ def main():
                                                     ("after", k4b_after))
         for key in ("unrolled_reduce_ms", "unrolled_reduce_graph_ms", "torch_sum_ms",
                     "torch_sum_graph_ms")}})
+    torch.cuda.empty_cache()
 
     sources = {
         "block_chain_fwd": "qcpinn_tpu/ops/block_pallas.py:189",

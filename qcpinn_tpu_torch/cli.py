@@ -39,9 +39,16 @@ the field maps of ``eval``.
         --save runs/cz --batch-size 256 --physics-normalize balanced
 
 ``main(argv, device=None)`` runs on the card and raises without CUDA;
-``device="cpu"`` runs on the CPU. Not yet ported, each raising
-``NotImplementedError`` that names its ROADMAP item: ``--data-parallel``
-and ``cz --amp > 1``.
+``device="cpu"`` runs on the CPU.
+
+``--data-parallel`` (``train``, ``cz``) and ``cz --amp A`` run one process a
+device on the ('data', 'amp') mesh (``parallel/mesh.py``): launch with
+``torchrun --nproc-per-node N``, or alone as a world of one. Every rank
+trains and returns the same metrics; rank 0 alone writes (the log and run
+directory, checkpoints, the circuit drawing, plots and ``--metrics-json``).
+
+    torchrun --nproc-per-node 4 -m qcpinn_tpu_torch.cli train --data-parallel ...
+    torchrun --nproc-per-node 4 -m qcpinn_tpu_torch.cli cz --amp 2 ...
 """
 
 from __future__ import annotations
@@ -364,25 +371,30 @@ def cmd_train(args, device=None) -> int:
     from .train.loop import make_val_fn, train
     from .utils.checkpoint import save_checkpoint
     from .utils.evaluation import evaluate_relative_l2
-    from .utils.logger import Logging
+    from .utils.logger import Logging, NullLogging
 
     device = resolve_device(device)
+    mesh = None
     if args.data_parallel:
-        raise NotImplementedError(
-            "--data-parallel is not yet ported (ROADMAP queue 1, parallel)")
+        from .parallel import make_mesh
+
+        mesh = make_mesh(device=device)
+        device = mesh.device
+    main_rank = mesh is None or mesh.is_main
     cfg = make_config(args)
     model = make_model(cfg, device)
-    logger = Logging(cfg.output_dir, cfg.run_name or f"{cfg.solver}-{cfg.q_ansatz}-{cfg.problem}")
+    name = cfg.run_name or f"{cfg.solver}-{cfg.q_ansatz}-{cfg.problem}"
+    logger = Logging(cfg.output_dir, name) if main_rank else NullLogging()
     try:
         logger.dump_config(cfg)
         out_dir = logger.get_output_dir()
-        if cfg.solver == "DV":
+        if main_rank and cfg.solver == "DV":
             # circuit diagram into the run dir (nn/DVPDESolver.py:144-158)
             from .utils.drawing import draw_circuit
 
             draw_circuit(model.circuit, out_dir)
             logger.print("circuit diagram written (circuit.txt / circuit.pdf)")
-        elif cfg.solver == "CV":
+        elif main_rank and cfg.solver == "CV":
             # CV program diagram (nn/CVPDESolver.py:139-152 draw_quantum_circuit)
             from .utils.drawing import draw_cv_circuit
 
@@ -390,6 +402,8 @@ def cmd_train(args, device=None) -> int:
             logger.print("CV circuit diagram written (circuit.txt / circuit.pdf)")
 
         terms, operator, analytic_u, analytic_r = make_problem(args.problem, cfg)
+        if mesh is not None:
+            logger.print(f"data-parallel over mesh {dict(mesh.shape)}")
         val_fn = None
         if args.best_val:
             X_val, y_val, n_walls = validation_set(terms, analytic_u, cfg.seed, device)
@@ -398,14 +412,15 @@ def cmd_train(args, device=None) -> int:
                 f"best-val tracking on ({X_val.shape[0]}-point analytic set: "
                 f"256 interior + {n_walls} wall/IC samplers)")
 
-        model, history = train(model, cfg, terms, operator, logger=logger,
+        model, history = train(model, cfg, terms, operator, logger=logger, mesh=mesh,
                                val_fn=val_fn, device=device)
         logger.print(f"trainable parameters: {count_trainable(model)}")
 
-        ckpt = save_checkpoint(os.path.join(out_dir, "model"), model,
-                               loss_history=history, config=cfg.to_dict(),
-                               epoch=cfg.epochs)
-        logger.print(f"checkpoint: {ckpt}")
+        if main_rank:
+            ckpt = save_checkpoint(os.path.join(out_dir, "model"), model,
+                                   loss_history=history, config=cfg.to_dict(),
+                                   epoch=cfg.epochs)
+            logger.print(f"checkpoint: {ckpt}")
 
         hi = [1.0, math.pi, math.pi] if args.problem == "navier_stokes" else None
         metrics = evaluate_relative_l2(
@@ -415,7 +430,7 @@ def cmd_train(args, device=None) -> int:
         )
         for k, v in metrics.items():
             logger.print(f"{k}: {v:.4f}")
-        if args.metrics_json:
+        if args.metrics_json and main_rank:
             # the argv actually parsed (main(argv=...) callers have a
             # foreign sys.argv)
             arg_list = args._argv if args._argv is not None else sys.argv[1:]
@@ -560,21 +575,29 @@ def _checkpoint_handoff(args):
 
 def cmd_cz(args, device=None) -> int:
     from . import resolve_device
-    from .utils.logger import Logging
+    from .utils.logger import Logging, NullLogging
 
     device = resolve_device(device)
+    world = None
     if args.amp > 1 or args.data_parallel:
-        raise NotImplementedError(
-            "the Czochralski flagship's --data-parallel and --amp > 1 are not yet "
-            "ported (ROADMAP queue 1, parallel)")
-    logger = Logging(args.output_dir, f"cz-{args.phase}")
+        import torch.distributed as dist
+
+        from .parallel.mesh import init_world
+
+        device = init_world(device)
+        world = dist.get_world_size()
+        if world % args.amp:
+            raise SystemExit(f"--amp {args.amp} does not divide the "
+                             f"{world} available devices")
+    main_rank = world is None or dist.get_rank() == 0
+    logger = Logging(args.output_dir, f"cz-{args.phase}") if main_rank else NullLogging()
     try:
-        return run_cz(args, device, logger)
+        return run_cz(args, device, logger, world)
     finally:
         logger.close()
 
 
-def run_cz(args, device, logger) -> int:
+def run_cz(args, device, logger, world=None) -> int:
     """The body of ``cmd_cz`` (JAX ``cmd_cz``, cli.py:529-764)."""
     from .bridge import params_from_jax
     from .data.cz_loader import choose_calibration_subset, load_cz_data
@@ -606,6 +629,19 @@ def run_cz(args, device, logger) -> int:
     if args.time_budget and args.phase != "pretrain":
         logger.print(f"WARNING: --time-budget only applies to the pretrain phase; "
                      f"ignored for --phase {args.phase}")
+    if args.data_parallel and args.phase == "finetune":
+        logger.print("WARNING: --data-parallel does not apply to the finetune phase "
+                     "(its calibration subset is tiny by design); ignored")
+    mesh = None
+    if world is not None:
+        from .parallel import make_mesh
+
+        mesh = make_mesh(data=world // args.amp, amp=args.amp, device=device)
+        logger.print(f"mesh {dict(mesh.shape)}")
+        if args.amp > 1:
+            # the [B, 2^n] state's amplitudes over 'amp' (use_sharded)
+            model.use_sharded(mesh)
+    main_rank = mesh is None or mesh.is_main
 
     def load_params():
         # cz bundles store params only: a resume gets a fresh optimizer, as
@@ -619,10 +655,11 @@ def run_cz(args, device, logger) -> int:
         if not args.load:
             raise SystemExit("eval phase requires --load with a checkpoint")
         model.load_state_dict(params_from_jax(load_params()["bundle"]["params"]))
-        metrics, pred = evaluate_cz_fields(model, X, Y, return_pred=True, device=device)
+        metrics, pred = evaluate_cz_fields(model, X, Y, return_pred=True, mesh=mesh,
+                                           device=device)
         for k, v in metrics.items():
             logger.print(f"{k}: {v:.6e}")
-        if not args.no_plots:
+        if not args.no_plots and main_rank:
             # truth-vs-prediction field maps over the node cloud
             from .utils.plotting import plot_field_scatter
 
@@ -634,8 +671,9 @@ def run_cz(args, device, logger) -> int:
 
     if args.phase == "pretrain":
         def ckpt_fn(params, epoch, history):
-            save_checkpoint(args.save, params, loss_history=history,
-                            stats=stats.to_dict(), config=vars(args), epoch=epoch)
+            if main_rank:
+                save_checkpoint(args.save, params, loss_history=history,
+                                stats=stats.to_dict(), config=vars(args), epoch=epoch)
 
         warm = None
         if args.load:
@@ -650,14 +688,21 @@ def run_cz(args, device, logger) -> int:
                     "WARNING: warm-start checkpoint stats differ from the "
                     "file-derived stats of --data; the warm-started params "
                     "will be reinterpreted in the new normalized space")
+        if mesh is not None and args.quick_check and cfg.batch_size % mesh.shape["data"]:
+            # smoke mode stays runnable on any device count: one row a
+            # data-axis device
+            cfg.batch_size = mesh.shape["data"]
+            logger.print(f"quick-check batch bumped to {cfg.batch_size} "
+                         f"(one row per device)")
         model, history = run_pretrain(
             model, X, Y, stats, cfg, logger=logger, params=warm,
             checkpoint_fn=ckpt_fn if args.save_every else None,
-            save_every=args.save_every, time_budget_s=args.time_budget * 60.0)
+            save_every=args.save_every, time_budget_s=args.time_budget * 60.0, mesh=mesh)
         # len(history) = the epochs actually run (a --time-budget stop may
         # end the run early)
-        save_checkpoint(args.save, model, loss_history=history, stats=stats.to_dict(),
-                        config=vars(args), epoch=len(history))
+        if main_rank:
+            save_checkpoint(args.save, model, loss_history=history, stats=stats.to_dict(),
+                            config=vars(args), epoch=len(history))
         logger.print(f"pretrain checkpoint saved to {args.save}.npz (+ stats sidecar)")
         logger.print(f"trainable parameters: {count_trainable(model)}")
         return 0
@@ -667,7 +712,7 @@ def run_cz(args, device, logger) -> int:
     params = load_params()["bundle"]["params"]
     model.load_state_dict(params_from_jax(params))
     # the pre-finetune diagnostic suite (cg-hqpinn/...:515-587)
-    if not args.no_plots:
+    if not args.no_plots and main_rank:
         from .utils.plotting import plot_cz_diagnostics
 
         x_c, _ = choose_calibration_subset(X, Y, cfg.calib_size)
@@ -676,8 +721,9 @@ def run_cz(args, device, logger) -> int:
         logger.print("diagnostic plots written (data_fields/calib_coverage/"
                      "initial_pred_vs_gt/quantum_weights_hist)")
     model, history = run_finetune(model, None, X, Y, stats, cfg, logger=logger)
-    save_checkpoint(args.save, model, loss_history=history, stats=stats.to_dict(),
-                    config=vars(args), epoch=cfg.finetune_epochs)
+    if main_rank:
+        save_checkpoint(args.save, model, loss_history=history, stats=stats.to_dict(),
+                        config=vars(args), epoch=cfg.finetune_epochs)
     logger.print(f"finetune checkpoint saved to {args.save}.npz")
     return 0
 

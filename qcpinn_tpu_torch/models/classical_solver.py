@@ -14,9 +14,18 @@ one call (``batch_coupled``; ``train/loop.py`` reads it). The two B x B
 products are plain ``torch.matmul`` in full f32 (TF32 is off package-wide),
 as the JAX package computes them outside any kernel. ``model(x)`` is the
 JAX package's ``model.apply(params, x)``.
+
+Under a data-parallel mesh each rank holds its rows of the batch; JAX's
+GSPMD keeps the attention global, and so does the port: inside
+``batch_sharded`` the keys and values are gathered over the data axis
+(``collectives.gather_rows``), whose backward sums each rank's cotangents
+into the owner's rows, so the sum-gradient residual keeps its cross-rank
+terms. Without the context the softmax would silently turn local.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch import nn
@@ -36,10 +45,16 @@ def hopfield_init(input_dim: int, hidden_dim: int, generator=None) -> nn.ModuleD
     })
 
 
-def hopfield_apply(layers: nn.ModuleDict, x: torch.Tensor, beta: float = 1.0) -> torch.Tensor:
+def hopfield_apply(layers: nn.ModuleDict, x: torch.Tensor, beta: float = 1.0,
+                   gather=None) -> torch.Tensor:
+    """``gather(rows) -> rows of the whole batch`` when ``x`` is this rank's
+    part of a batch split over a mesh: the keys and values then span the
+    whole batch, the queries stay this rank's."""
     q = nc.linear_apply(layers["w_q"], x)
     k = nc.linear_apply(layers["w_k"], x)
     v = nc.linear_apply(layers["w_v"], x)
+    if gather is not None:
+        k, v = gather(torch.cat([k, v], dim=1)).split([k.shape[1], v.shape[1]], dim=1)
     weights = torch.softmax(torch.matmul(q, k.T) * beta, dim=-1)
     return torch.matmul(weights, v)
 
@@ -61,6 +76,21 @@ class ClassicalSolver(nn.Module):
         self.hopfield = hopfield_init(hidden, hidden, generator)
         self.post = nc.linear_init(hidden, out_dim, generator)
         self.to(device)
+        self._gather = None
+
+    @contextlib.contextmanager
+    def batch_sharded(self, mesh, rows: int, axis: str = "data"):
+        """Within: the model's inputs are this rank's part of a ``rows``-row
+        batch split over ``mesh``'s ``axis`` (``mesh.shard_batch``), and the
+        attention spans the whole batch."""
+        from ..parallel.collectives import gather_rows
+
+        ax = mesh.axis(axis)
+        prev, self._gather = self._gather, lambda t: gather_rows(t, ax, rows)
+        try:
+            yield self
+        finally:
+            self._gather = prev
 
     @property
     def device(self) -> torch.device:
@@ -68,6 +98,6 @@ class ClassicalSolver(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         pre = torch.tanh(nc.linear_apply(self.pre, x))
-        hop = hopfield_apply(self.hopfield, pre, self.beta)
+        hop = hopfield_apply(self.hopfield, pre, self.beta, self._gather)
         # residual connection (nn/ClassicalSolver.py:70-71)
         return nc.linear_apply(self.post, torch.tanh(pre + hop))

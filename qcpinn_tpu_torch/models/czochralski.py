@@ -116,6 +116,9 @@ class CzQuantumLayer:
         self.n = n_qubits
         self.layers = n_layers
         self.remat = remat
+        # the amp-sharded layout (Hybrid16QPINN.use_sharded): a
+        # parallel.sharded_sv.ShardedOps, or None for the whole state here
+        self.sharded = None
 
     def init(self, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """TorchLayer's default init: U(0, 2 pi) over (L, n, 3)."""
@@ -137,6 +140,22 @@ class CzQuantumLayer:
                 counts[a] += 1
                 counts[b] += 1
         return tuple(counts)
+
+    def _apply_group(self, st, w0, mats):
+        """The kron of one-wire gates ``mats`` on wires [w0, w0 + len).
+        Sharded, the group's sharded wires take their gate by a partner
+        exchange each (``ShardedOps.apply_1q``) and its local wires the
+        smaller kron on the local block: the factors commute, and no wire
+        swap is needed whatever the group covers."""
+        ops = self.sharded
+        if ops is None:
+            return _apply_wire_group(st, self.n, w0, _kron_chain(mats))
+        split = min(max(ops.a - w0, 0), len(mats))
+        for i in range(split):
+            st = ops.apply_1q(st, w0 + i, mats[i])
+        if split < len(mats):
+            st = _apply_wire_group(st, ops.n_local, w0 + split - ops.a, _kron_chain(mats[split:]))
+        return st
 
     def _segment(self, fn, *args):
         if self.remat and torch.is_grad_enabled() and not _under_transform():
@@ -162,14 +181,26 @@ class CzQuantumLayer:
         if noise is not None:
             noise = noise.bind(self)
         bits, brick = _constants(n, x.device)
+        ops = self.sharded
+        if ops is not None:
+            # this rank's block of basis states
+            lo, hi = ops.block
+            bits, brick = bits[lo:hi], brick[lo:hi]
         groups = _wire_groups(n)
 
         def encode(xx):
-            st = sv.zero_state(xx.shape[0], n, device=xx.device)
+            if ops is None:
+                st = sv.zero_state(xx.shape[0], n, device=xx.device)
+            else:
+                # only shard 0 holds |0...0>
+                st = torch.zeros((xx.shape[0], 1 << ops.n_local), dtype=sv.CDTYPE,
+                                 device=xx.device)
+                if ops.axis.index == 0:
+                    st[:, 0] = 1.0
             for w0, k in groups:
                 mats = [gates.ry(xx[:, w] if enc_off is None else xx[:, w] + enc_off[w])
                         for w in range(w0, w0 + k)]
-                st = _apply_wire_group(st, n, w0, _kron_chain(mats))
+                st = self._apply_group(st, w0, mats)
             return st
 
         def one_layer(st, xx, wl, layer):
@@ -181,15 +212,19 @@ class CzQuantumLayer:
             phi = theta @ bits.T - 0.5 * torch.sum(theta, dim=1, keepdim=True)
             st = st * torch.exp(1j * phi)
             for w0, k in groups:
-                u = _kron_chain([gates.rot(wl[i, 0], wl[i, 1], wl[i, 2])
-                                 for i in range(w0, w0 + k)])
-                st = _apply_wire_group(st, n, w0, u)
+                st = self._apply_group(st, w0, [gates.rot(wl[i, 0], wl[i, 1], wl[i, 2])
+                                                for i in range(w0, w0 + k)])
             return st * brick[None, :]
 
         state = self._segment(encode, x)
         for layer in range(self.layers):
             state = self._segment(functools.partial(one_layer, layer=layer),
                                   state, x, weights[layer])
+        if ops is not None:
+            # <Z> summed over 'amp': alike on every amp rank, so are the
+            # shots drawn from a generator seeded alike
+            measure.check_key(shots, key)
+            return measure.read_z(ops.z_expvals(state), shots=shots, key=key, noise=noise)
         if shots is None:
             return measure.exact_z(state, n, noise)
         measure.check_key(shots, key)
@@ -291,10 +326,23 @@ class Hybrid16QPINN(nn.Module):
         return torch.cat([r * raw[:, 0:1], raw[:, 1:2], r * raw[:, 2:3], raw[:, 3:4],
                           raw[:, 4:5]], dim=1)
 
-    def use_sharded(self, mesh, amp_axis: str = "amp", data_axis: str = "data"):
-        raise NotImplementedError(
-            "the amplitude-sharded statevector is not yet ported (ROADMAP queue 1, "
-            "parallel)")
+    def use_sharded(self, mesh, amp_axis: str = "amp",
+                    data_axis: str = "data") -> "Hybrid16QPINN":
+        """Shard the circuit's ``[B, 2^n]`` statevector over the mesh: this
+        rank's rows of the batch (split over ``data_axis`` where the batch is
+        drawn), the amplitude dimension (leading wire bits) over
+        ``amp_axis``, as the per-gate engine lays it out
+        (``parallel/sharded_sv.py``). The diagonal phases stay local; a wire
+        group with sharded wires exchanges with partners (see
+        ``CzQuantumLayer._apply_group``); ``<Z>`` is summed over 'amp'.
+        Composes with remat, shots and noise and the pipeline's data-parallel
+        batch."""
+        from ..parallel.sharded_sv import ShardedOps, shard_bits_of
+
+        del data_axis  # the rows arrive split
+        axis = mesh.axis(amp_axis)
+        self.qlayer.sharded = ShardedOps(self.n, shard_bits_of(axis.size), axis)
+        return self
 
     @staticmethod
     def head_param_filter(model: nn.Module) -> dict:

@@ -97,6 +97,14 @@ class DVFourierSolver(nn.Module):
         self._fused = make_fused_backend(self.circuit, backend, device=self.device)
         return self
 
+    def use_sharded(self, mesh, amp_axis: str = "amp",
+                    data_axis: str = "data") -> "DVFourierSolver":
+        """Amplitude-sharded quantum block (see DVSolver.use_sharded)."""
+        from ..parallel.sharded_sv import ShardedCircuit
+
+        self._fused = ShardedCircuit(self.circuit, mesh, amp_axis, data_axis)
+        return self
+
     @property
     def qblock(self):
         return self._fused if self._fused is not None else self.circuit

@@ -68,6 +68,29 @@ class DVSolver(nn.Module):
         self._fused = make_fused_backend(self.circuit, backend, device=self.device)
         return self
 
+    def use_sharded(self, mesh, amp_axis: str = "amp", data_axis: str = "data",
+                    backend: str = "gate") -> "DVSolver":
+        """Route the quantum block through an amplitude-sharded engine: the
+        2^n state split over the mesh's ``amp_axis``, this rank's rows of
+        the batch over ``data_axis``. Differentiable to any order, so it
+        composes with the nested-AD PDE operators inside the train step.
+        ``backend='gate'`` is the per-gate engine (parallel/sharded_sv.py,
+        cross-shard gates by partner exchanges); ``'block'`` the block-fused
+        engine over a sharded high block (parallel/sharded_block.py,
+        all-to-alls around the high-block products). Both cover the whole
+        apply contract, shots and noise included."""
+        if backend == "block":
+            from ..parallel.sharded_block import ShardedBlockCircuit
+
+            self._fused = ShardedBlockCircuit(self.circuit, mesh, amp_axis, data_axis)
+        elif backend == "gate":
+            from ..parallel.sharded_sv import ShardedCircuit
+
+            self._fused = ShardedCircuit(self.circuit, mesh, amp_axis, data_axis)
+        else:
+            raise ValueError(f"unknown sharded backend {backend!r}")
+        return self
+
     @property
     def qblock(self):
         return self._fused if self._fused is not None else self.circuit

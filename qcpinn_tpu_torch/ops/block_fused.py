@@ -182,13 +182,26 @@ class BlockFusedCircuit:
         p2 = params.reshape(c.layers, c.params_per_layer)
         return lambda layer: p2[layer] if layer >= 0 else p2[0, :0]
 
+    # The amp-sharded wrapper's hook (parallel/sharded_block.py), where the
+    # JAX engine re-pins the layout (``_constrain``): the high-block product,
+    # a diagonal run's phases and a cross-block op, on ``s [B, H, L]`` (under
+    # the wrapper, this rank's rows of H).
+
+    def _hi_product(self, s, m):
+        return torch.einsum("bkl,km->bml", s, m)
+
+    def _diag_phases(self, run, layer_params):
+        return run.phases(layer_params)
+
+    def _cross_op(self, flat, op, layer_params):
+        return prog.apply_program(flat, self.circuit.n, (op,), layer_params)
+
     def evolve(self, params, state):
         """Ansatz layers + epilogue on an arbitrary [B, 2^n] complex state."""
-        c = self.circuit
         lp = self._layer_params(params)
         b = state.shape[0]
-        h, l = 1 << self.hb, 1 << self.lb
-        s = state.reshape(b, h, l)
+        l = 1 << self.lb
+        s = state.reshape(b, -1, l)
         for seg in self.segments:
             if seg.kind == "blocks":
                 mh = ml = None
@@ -203,18 +216,15 @@ class BlockFusedCircuit:
                         m = _block_unitary(self.lb, lo_prog, pp)
                         ml = m if ml is None else ml @ m
                 if mh is not None:
-                    s = torch.einsum("bkl,km->bml", s, mh)
+                    s = self._hi_product(s, mh)
                 if ml is not None:
                     s = torch.einsum("bkl,lm->bkm", s, ml)
             elif seg.kind == "diag":
-                phi = seg.run.phases(lp(seg.layer)).reshape(1, h, l)
+                phi = self._diag_phases(seg.run, lp(seg.layer)).reshape(1, -1, l)
                 s = s * torch.polar(torch.ones_like(phi), phi)
             else:  # cross-block single op
-                flat = prog.apply_program(
-                    s.reshape(b, 1 << c.n), c.n, (seg.op,), lp(seg.layer)
-                )
-                s = flat.reshape(b, h, l)
-        return s.reshape(b, 1 << c.n)
+                s = self._cross_op(s.reshape(b, -1), seg.op, lp(seg.layer)).reshape(b, -1, l)
+        return s.reshape(b, -1)
 
     def state(self, params, x):
         from . import statevector as sv

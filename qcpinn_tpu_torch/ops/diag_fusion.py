@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import List, Tuple, Union
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -53,19 +53,23 @@ class DiagRun:
     quad: Tuple[Tuple[int, int, int], ...]
     const_pairs: Tuple[Tuple[int, int], ...]
 
-    def constants(self, device) -> dict:
+    def constants(self, device, block: Optional[Tuple[int, int]] = None) -> dict:
         """Everything :meth:`phases` needs besides the parameters, on
         ``device``, built once per device: the bit planes, the linear and
         global-phase coefficients, the bilinear pair planes with their
         parameter indices, the static CZ phases and the run's parameter
         indices. A call then copies nothing from the host, so it can be
-        captured in a CUDA graph. The cache lives beside the dataclass
-        fields (a frozen dataclass still has a ``__dict__``)."""
+        captured in a CUDA graph. ``block`` (start, stop) keeps only those
+        basis states: an amp shard's contiguous block of amplitudes. The
+        cache lives beside the dataclass fields (a frozen dataclass still
+        has a ``__dict__``)."""
         device = torch.device(device)
         cache = self.__dict__.setdefault("_on_device", {})
-        if device not in cache:
+        if (device, block) not in cache:
             with gates.untransformed():
                 bits_np = bit_matrix(self.n)
+                if block is not None:
+                    bits_np = bits_np[block[0]:block[1]]
 
                 def dev(a, dtype=torch.float32):
                     return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
@@ -77,16 +81,18 @@ class DiagRun:
                         [bits_np[:, q] * bits_np[:, t] for q, t, _ in self.quad]))
                     c["ks"] = dev([q[2] for q in self.quad], torch.long)
                 if self.const_pairs:
-                    cvec = np.zeros(1 << self.n, dtype=np.float32)
+                    cvec = np.zeros(bits_np.shape[0], dtype=np.float32)
                     for a, t in self.const_pairs:
                         cvec += np.pi * bits_np[:, a] * bits_np[:, t]
                     c["cvec"] = dev(cvec)
-                cache[device] = c
-        return cache[device]
+                cache[device, block] = c
+        return cache[device, block]
 
-    def phases(self, params: torch.Tensor) -> torch.Tensor:
-        """params: [P_layer] or [B, P_layer] -> phases [2^n] / [B, 2^n]."""
-        c = self.constants(params.device)
+    def phases(self, params: torch.Tensor,
+               block: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        """params: [P_layer] or [B, P_layer] -> phases [2^n] / [B, 2^n]
+        (or those of the basis states ``block`` = (start, stop))."""
+        c = self.constants(params.device, block)
         theta = params[..., c["pidx"]]
         # linear: Bits @ (W1^T theta), plus the scalar global-phase part
         lin_w = theta @ c["w1"]  # [..., n]

@@ -80,11 +80,15 @@ def circuit_z_streams(
     d1: dict,
     d2: dict,
     evolve_fn=None,
+    bilinear_fn=None,
 ) -> Tuple[torch.Tensor, dict, dict]:
     """Given angles a [B, n] and their coordinate derivatives
     (d1[col] = da/dcol, d2[col] = d2a/dcol^2), return (z, dz[col],
     d2z[col]) with ONE batched circuit evolution. d2's keys must be a
-    subset of d1's."""
+    subset of d1's. ``bilinear_fn(x, y) -> Re <x|Z_w|y>`` reads the evolved
+    streams: an amp-sharded engine's ``evolve`` returns this rank's
+    amplitude block and its ``bilinear_z`` sums the blocks' shares over the
+    mesh, so the 6x-wide batch stays sharded."""
     n = circuit.n
     b = a.shape[0]
     E = circuit.prepare(a)  # [B, D]
@@ -118,15 +122,18 @@ def circuit_z_streams(
         i = index[tag]
         return evolved[i * b : (i + 1) * b]
 
+    if bilinear_fn is None:
+        def bilinear_fn(x, y):
+            return _bilinear_z(x, y, n)
+
     psi0 = stream("0")
-    z = _bilinear_z(psi0, psi0, n)
-    dz = {col: 2.0 * _bilinear_z(stream(f"d1_{col}"), psi0, n) for col in d1}
+    z = bilinear_fn(psi0, psi0)
+    dz = {col: 2.0 * bilinear_fn(stream(f"d1_{col}"), psi0) for col in d1}
     d2z = {}
     for col in d2:
         psi_c = stream(f"d1_{col}")
-        d2z[col] = 2.0 * _bilinear_z(stream(f"d2_{col}"), psi0, n) + 2.0 * _bilinear_z(
-            psi_c, psi_c, n
-        )
+        d2z[col] = 2.0 * bilinear_fn(stream(f"d2_{col}"), psi0) + 2.0 * bilinear_fn(
+            psi_c, psi_c)
     return z, dz, d2z
 
 
@@ -155,7 +162,8 @@ def dv_diffusion_residual_streams(
     d1 = {"t": enc_t[:, :n], "x": enc_x[:, :n], "y": enc_y[:, :n]}
     d2 = {"x": enc_xx[:, :n], "y": enc_yy[:, :n]}
     z, dz, d2z = circuit_z_streams(
-        model.circuit, model.q, a, d1, d2, model.qblock.evolve
+        model.circuit, model.q, a, d1, d2, model.qblock.evolve,
+        getattr(model.qblock, "bilinear_z", None),
     )
 
     # decoder chain rule via nested jvp over the (z, extra) feature space

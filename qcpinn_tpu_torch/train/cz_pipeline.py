@@ -39,6 +39,8 @@ import torch
 from ..bridge import params_from_jax, params_to_jax
 from ..data.cz_loader import DataStats, choose_calibration_subset
 from ..models.czochralski import Hybrid16QPINN
+from ..parallel.collectives import psum
+from ..parallel.mesh import replicate, shard_batch
 from ..physics.cylindrical import cz_residuals
 from ..physics.operators_fwd import cz_residuals_fwd
 from . import optim
@@ -161,14 +163,30 @@ class PretrainEpoch:
     summed, and the loss sees the sum through a linear stand-in whose value
     is the residual and whose gradient is the chunks' sum. The gradient is
     the same (each residual term is a mean over rows, the model
-    point-decoupled); the peak memory is one chunk's."""
+    point-decoupled); the peak memory is one chunk's.
+
+    ``mesh`` (``parallel.make_mesh``) makes the step data-parallel, as
+    ``train/loop.py``'s: every rank shuffles alike, keeps its rows of each
+    batch, and sums its share of the data and physics terms over the 'data'
+    axis, so the EMA balancer and the physics weight see the global values;
+    the gradients are averaged over the world inside the step (in the
+    captured graph on the card)."""
 
     def __init__(self, model: Hybrid16QPINN, X: np.ndarray, Y: np.ndarray,
-                 stats: DataStats, cfg: CzConfig):
-        self.model, self.stats, self.cfg = model, stats, cfg
+                 stats: DataStats, cfg: CzConfig, mesh=None):
+        self.model, self.stats, self.cfg, self.mesh = model, stats, cfg, mesh
         self.n_batches = len(X) // cfg.batch_size
         if self.n_batches == 0:
             raise ValueError("batch_size larger than dataset")
+        b = cfg.batch_size
+        if mesh is not None:
+            if b % mesh.shape["data"]:
+                raise ValueError(f"batch_size {b} must divide over the 'data' axis of "
+                                 f"{mesh.shape['data']} devices")
+            replicate(model, mesh)
+            b //= mesh.shape["data"]
+        # this rank's share of a batch's rows
+        self.frac = b / cfg.batch_size
         dev = model.device
         self.device = dev
         # the full dataset on the device; each epoch permutes all of it
@@ -184,15 +202,15 @@ class PretrainEpoch:
         self.fw = cfg.norm_field_weights(dev)
         self.data_only = cfg.physics_weight == 0.0
         self.chunk_rows = (REMAT_ROWS if cfg.effective_remat and cfg.physics_mode != "rev"
-                           and cfg.batch_size > REMAT_ROWS else None)
-        b = cfg.batch_size
+                           and b > REMAT_ROWS else None)
         self.xb = torch.zeros((b, self.Xd.shape[1]), device=dev)
         self.yb = torch.zeros((b, self.Yd.shape[1]), device=dev)
         self.phys_w = torch.zeros((), device=dev)
         self.lr = torch.zeros((), device=dev)
-        step = self.static_step
-        self.captured = CapturedStep(step) if dev.type == "cuda" else None
-        self._step = self.captured or step
+        self.captured = CapturedStep(self.static_step) if dev.type == "cuda" else None
+        # the step a batch runs, None for static_step (no reference to a
+        # bound method of self: the epoch goes with its last reference)
+        self._step = self.captured
 
     def residual(self, xb: torch.Tensor):
         s, cfg = self.stats, self.cfg
@@ -232,6 +250,13 @@ class PretrainEpoch:
             phys_total, phys_terms = self.chunked_residual(xb)
         else:
             phys_total, phys_terms = self.residual(xb)
+        if self.mesh is not None:
+            # every term is a mean over this rank's rows: its share of the
+            # global mean, summed over 'data' in one all-reduce
+            parts = psum(torch.stack([data_loss, phys_total, *phys_terms.values()])
+                         * self.frac, self.mesh.axis("data"))
+            data_loss, phys_total = parts[0], parts[1]
+            phys_terms = dict(zip(phys_terms, parts[2:]))
         # EMA-normalized physics weight (:510-513): the weights are EMA'd
         # relative magnitudes; only the mean physics weight scales the loss
         detached = {"data": data_loss.detach(),
@@ -265,6 +290,8 @@ class PretrainEpoch:
         total, data_loss, phys_total, new_ema = self.batch_loss(xb, yb, phys_w)
         grads = torch.autograd.grad(total, self.params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(self.params, grads)]
+        if self.mesh is not None:
+            grads = self.mesh.mean_grads(grads)
         updates, _ = self.optimizer.update(grads, self.opt_state, self.params)
         with torch.no_grad():
             torch._foreach_mul_(updates, lr)
@@ -292,21 +319,21 @@ class PretrainEpoch:
         Xs, Ys = self.Xd[perm].reshape(nb, b, -1), self.Yd[perm].reshape(nb, b, -1)
         trace = torch.empty((nb, 3), device=self.device)
         for i in range(nb):
-            self.xb.copy_(Xs[i])
-            self.yb.copy_(Ys[i])
-            trace[i].copy_(self._step())
+            xb, yb = Xs[i], Ys[i]
+            if self.mesh is not None:
+                xb, yb = shard_batch(xb, self.mesh), shard_batch(yb, self.mesh)
+            self.xb.copy_(xb)
+            self.yb.copy_(yb)
+            trace[i].copy_((self._step or self.static_step)())
         m = trace.mean(0)
         return {"loss": m[0], "data": m[1], "phys": m[2], "phys_w": phys_w, "lr": lr}
 
 
 def make_pretrain_epoch(model: Hybrid16QPINN, X, Y, stats: DataStats, cfg: CzConfig,
                         mesh=None) -> PretrainEpoch:
-    """The pretrain step and epoch (:class:`PretrainEpoch`). ``mesh`` (the
-    data-parallel step) is not yet ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the data-parallel pretrain step is not yet ported (ROADMAP queue 1, parallel)")
-    return PretrainEpoch(model, X, Y, stats, cfg)
+    """The pretrain step and epoch (:class:`PretrainEpoch`), data-parallel
+    over ``mesh``'s 'data' axis when given."""
+    return PretrainEpoch(model, X, Y, stats, cfg, mesh)
 
 
 def _strip_balancer(params: dict) -> dict:
@@ -352,10 +379,10 @@ def run_pretrain(
         model.loss_bal = coupled_weighting_init().to(model.device)
         log(f"coupled adaptive weighting on (trainable eps_data, "
             f"ratio {cfg.coupled_ratio}; modified_qpinn_cg.py:142-156)")
-    if cfg.effective_remat and cfg.physics_mode != "rev" and cfg.batch_size > REMAT_ROWS:
+    epoch_fn = make_pretrain_epoch(model, X, Y, stats, cfg, mesh=mesh)
+    if epoch_fn.chunk_rows is not None:
         log(f"remat: circuit segments checkpointed in reverse mode; the "
             f"forward-mode residual runs in chunks of {REMAT_ROWS} rows")
-    epoch_fn = make_pretrain_epoch(model, X, Y, stats, cfg, mesh=mesh)
     gen = torch.Generator(device=model.device).manual_seed(cfg.seed)
 
     history = []

@@ -20,16 +20,24 @@ runs it, and on the card a caller that compares against it calls it
 directly. The host waits on the device only when the caller reads a
 metric (``train`` reads each chunk's trace once).
 
-Not ported yet: the device-mesh data axis (ROADMAP queue 1, parallel),
-which raises ``NotImplementedError``.
+On a device mesh (``parallel/mesh.py``, one process a device) every rank
+draws the same global batch from the same generator and keeps its rows of
+it (the 'data' axis); each loss term is its rows' sum over the term's
+global count, summed over 'data', so the balancers, the scheduler and the
+logged history see the global values; the gradients are averaged over the
+world before the clip and Adam, so every rank takes the single-device step.
+The gradient all-reduce runs inside the step, so a captured step holds it
+(its first run is one of the eager warm-ups).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import inspect
 import os
 import time
+import weakref
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
@@ -37,6 +45,8 @@ from torch import nn
 
 from .. import resolve_device
 from ..bridge import params_from_jax
+from ..parallel.collectives import psum
+from ..parallel.mesh import replicate, shard_batch
 from . import losses as L
 from . import optim
 from .spsa import SPSAConfig, spsa_split_step, spsa_step, split_params
@@ -118,6 +128,7 @@ def make_train_step(
     quantum_keys: Tuple[str, ...] = ("q",),
     fuse_value_terms: bool = False,
     balancer: str = "none",
+    data_axis: str = "data",
 ):
     """Build (step_fn, run_steps).
 
@@ -164,6 +175,15 @@ def make_train_step(
       and copies it into the buffers in place after the update, inside the
       captured graph on the card).
 
+    ``mesh`` (``parallel.make_mesh``) runs the step data-parallel over its
+    ``data_axis``: each rank computes its rows of every exact term (a
+    ``batch_coupled`` model, the Hopfield baseline, inside its
+    ``batch_sharded`` context, so its attention spans the global batch),
+    the terms are summed over the axis and the gradients averaged over the
+    world (see the module docstring). A shot-sampled term runs on every rank
+    over all its rows: its draws come from the shared generator, so the
+    ranks stay in step and draw what the single-device run draws.
+
     ``step_fn(params, opt_state, sched, generator) -> (opt_state, sched,
     metrics)`` updates ``params`` (the model's trainable tensors) in place;
     ``run_steps(..., n_steps)`` (a :class:`StepRunner`) runs that many
@@ -183,10 +203,8 @@ def make_train_step(
             "adaptive balancers need gradient_mode='backprop' (SPSA "
             "perturbs the balancer state leaves)"
         )
-    if mesh is not None:
-        raise NotImplementedError(
-            "the device-mesh data axis is not yet ported (ROADMAP queue 1, parallel)"
-        )
+    data = mesh.axis(data_axis) if mesh is not None else None
+    coupled = data is not None and getattr(model_apply, "batch_coupled", False)
     state_name = {"uncertainty": "loss_log_vars", "ema": "loss_ema"}.get(balancer)
     if state_name is not None and not hasattr(model_apply, state_name):
         raise ValueError(f"balancer {balancer!r} needs model.{state_name}: "
@@ -196,10 +214,26 @@ def make_train_step(
     names = tuple(terms.keys())
     use_plateau = config.scheduler == "plateau"
     value_names = tuple(n for n in names if terms[n].kind != "residual")
-    fuse_values = fuse_value_terms and shots_apply is None and len(value_names) > 1
+    fuse_values = (fuse_value_terms and shots_apply is None and len(value_names) > 1
+                   and not coupled)
     spsa_cfg = SPSAConfig(a=config.lr)
     if use_split:
         names_of = {id(p): n for n, p in model_apply.named_parameters()}
+
+    def rows(t):
+        return t if data is None else shard_batch(t, mesh, data_axis)
+
+    def term_mse(pred, y, n):
+        """The term's MSE over its ``n`` global rows from this rank's."""
+        if data is None:
+            return L.mse(pred, y)
+        local = L.mse(pred, y) if pred.shape[0] else (pred - y).sum()
+        return psum(local * (pred.shape[0] / n), data)
+
+    def on_rows(n):
+        if coupled:
+            return model_apply.batch_sharded(mesh, n, data_axis)
+        return contextlib.nullcontext()
 
     def loss_fn(batches, generator):
         per_term = {}
@@ -207,22 +241,28 @@ def make_train_step(
             if fuse_values and name in value_names:
                 continue
             X, y = batches[name]
-            if terms[name].kind == "residual":
-                if residual_fn is not None:
-                    _, pred = residual_fn(X)
+            if terms[name].kind != "residual" and shots_apply is not None:
+                per_term[name] = L.mse(shots_apply(X, generator), y)
+                continue
+            n = X.shape[0]
+            X, y = rows(X), rows(y)
+            with on_rows(n):
+                if terms[name].kind == "residual":
+                    if residual_fn is not None:
+                        _, pred = residual_fn(X)
+                    else:
+                        _, pred = operator(model_apply, X)
                 else:
-                    _, pred = operator(model_apply, X)
-            elif shots_apply is not None:
-                pred = shots_apply(X, generator)
-            else:
-                pred = model_apply(X)
-            per_term[name] = L.mse(pred, y)
+                    pred = model_apply(X)
+            per_term[name] = term_mse(pred, y, n)
         if fuse_values:
-            preds = model_apply(torch.cat([batches[n][0] for n in value_names], dim=0))
+            parts = [(rows(batches[n][0]), rows(batches[n][1]), batches[n][0].shape[0])
+                     for n in value_names]
+            preds = model_apply(torch.cat([X for X, _, _ in parts], dim=0))
             ofs = 0
-            for n in value_names:
-                b = batches[n][0].shape[0]
-                per_term[n] = L.mse(preds[ofs : ofs + b], batches[n][1])
+            for name, (X, y, n) in zip(value_names, parts):
+                b = X.shape[0]
+                per_term[name] = term_mse(preds[ofs : ofs + b], y, n)
                 ofs += b
         if balancer == "uncertainty":
             # the log-variances replace the static weights, on the raw
@@ -259,7 +299,8 @@ def make_train_step(
                 named = {names_of[id(p)]: p for p in params}
                 _, opt_state, loss, per_term = spsa_split_step(
                     terms_loss, named, k, generator, spsa_cfg, optimizer, opt_state,
-                    quantum_keys=quantum_keys, has_aux=True, lr_scale=lr_scale)
+                    quantum_keys=quantum_keys, has_aux=True, lr_scale=lr_scale,
+                    reduce_grads=None if mesh is None else mesh.mean_grads)
         else:
             loss, per_term, new_ema = loss_fn(batches, generator)
             grads = torch.autograd.grad(loss, list(params), allow_unused=True)
@@ -267,6 +308,8 @@ def make_train_step(
             # it is zeroed) gets a zero gradient, as in JAX
             grads = [torch.zeros_like(p) if g is None else g
                      for p, g in zip(params, grads)]
+            if mesh is not None:
+                grads = mesh.mean_grads(grads)
             updates, opt_state = optimizer.update(grads, opt_state, params)
             if use_plateau:
                 updates = optim.scale_updates(updates, sched.scale)
@@ -372,12 +415,21 @@ class CapturedStep:
     The kernels' launch counters (``LAUNCHES``) count in Python, so they see
     the warm-up steps and the captured step, never a replay:
     ``eager_steps`` and ``captured`` say how many steps they saw, and
-    ``replays`` how many steps ran without them."""
+    ``replays`` how many steps ran without them.
+
+    A bound method ``step`` is held weakly: its object owns this
+    CapturedStep (``PretrainEpoch``, ``FinetuneStep``, ``CrystalTrainer``),
+    and a strong reference back would make a cycle that keeps the graph and
+    its memory pool alive until Python's cycle collector runs. So the graph
+    goes when its owner does."""
 
     def __init__(self, step: Callable[[], torch.Tensor],
                  generator: Optional[torch.Generator] = None,
                  warmup: int = WARMUP_STEPS):
-        self.step = step
+        if inspect.ismethod(step):
+            self._ref = weakref.WeakMethod(step)
+        else:
+            self._ref = lambda: step
         self.generator = generator
         self.warmup = warmup
         self.graph = None
@@ -385,11 +437,20 @@ class CapturedStep:
         self.eager_steps = 0
         self.captured = 0
         self.replays = 0
-        self._side = torch.cuda.Stream()
+        self._side = None
+
+    @property
+    def step(self) -> Callable[[], torch.Tensor]:
+        step = self._ref()
+        if step is None:
+            raise ReferenceError("the object whose method this CapturedStep runs is gone")
+        return step
 
     def __call__(self) -> torch.Tensor:
         if self.graph is None:
             if self.eager_steps < self.warmup:
+                if self._side is None:
+                    self._side = torch.cuda.Stream()
                 self._side.wait_stream(torch.cuda.current_stream())
                 with torch.cuda.stream(self._side):
                     out = self.step()
@@ -456,6 +517,7 @@ def train_stage(
     device=None,
     resume: Optional[dict] = None,
     log: Callable[[str], None] = print,
+    mesh=None,
 ) -> Tuple[Stage, int]:
     """``train``'s set-up, without its loop: (the stage, the step it starts
     at). The balancer's tensors are injected into ``model``; the optimizer
@@ -470,11 +532,15 @@ def train_stage(
     ``hw_apply_fn(config.shots)``; the SPSA modes with ``shots``: the DV
     solver's sampled readout) and, for ``spsa-split``, an optimizer over the
     classical tensors alone (the model's ``quantum_param_keys``, default
-    ``q``, name the quantum ones)."""
+    ``q``, name the quantum ones). ``mesh`` makes the step data-parallel
+    (:func:`make_train_step`); rank 0's parameters are every rank's
+    (``parallel.replicate``)."""
     device = resolve_device(device)
     on = next(model.parameters()).device
     if on.type != device.type or device.index not in (None, on.index):
         raise ValueError(f"the model is on {on}; train on {device}")
+    if mesh is not None and mesh.device != on:
+        raise ValueError(f"the model is on {on}, the mesh's rank on {mesh.device}")
     balancer = config.loss_balancer
     inject_balancer_params(model, terms, balancer)
     if balancer != "none":
@@ -494,6 +560,8 @@ def train_stage(
         model.load_state_dict(params_from_jax(resume["params"]))
     if resume.get("rng") is not None:
         gen.set_state(resume["rng"])
+    if mesh is not None:
+        replicate(model, mesh)
     params = [p for p in model.parameters() if p.requires_grad]
     quantum_keys = tuple(getattr(model, "quantum_param_keys", ("q",)))
     stepped = params
@@ -556,7 +624,7 @@ def train_stage(
             "analytic mode'); use gradient_mode='parameter-shift' or 'spsa' "
             "for shot-noise training")
     step_fn, run_steps = make_train_step(
-        model, operator, terms, optimizer, config, shots_apply=shots_apply,
+        model, operator, terms, optimizer, config, mesh=mesh, shots_apply=shots_apply,
         quantum_keys=quantum_keys,
         fuse_value_terms=not getattr(model, "batch_coupled", False),
         balancer=balancer,
@@ -615,16 +683,16 @@ def train(
     evaluated after every chunk, and the parameters (and balancer state)
     with the lowest value are restored at the end. With ``QCPINN_PROFILE_DIR``
     set in the environment the training loop runs under ``torch.profiler``
-    and its trace is written there (:func:`profile_trace`)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the device-mesh data axis is not yet ported (ROADMAP queue 1, parallel)")
+    and its trace is written there (:func:`profile_trace`). ``mesh``
+    (``parallel.make_mesh``) trains data-parallel (:func:`make_train_step`):
+    every rank runs this loop and returns the same model and history."""
 
     def log(msg):
         if logger is not None:
             logger.print(msg)
 
-    stage, start_step = train_stage(model, config, terms, operator, device, resume, log)
+    stage, start_step = train_stage(model, config, terms, operator, device, resume, log,
+                                    mesh)
 
     loss_history: list = []
     best_val = float("inf")

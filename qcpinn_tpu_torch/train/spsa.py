@@ -22,7 +22,7 @@ evaluations, which is why the reference uses it on hardware.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -127,7 +127,7 @@ def split_params(params: Dict[str, torch.Tensor], quantum_keys=("q",)):
 
 
 def _spsa_split_update(loss_fn, params, k, delta, key, cfg, optimizer, opt_state,
-                       quantum_keys, has_aux, lr_scale):
+                       quantum_keys, has_aux, lr_scale, reduce_grads=None):
     """``spsa_split_step`` along the perturbation ``delta`` of the quantum
     tensors; returns (opt_state, loss[, aux])."""
     ak, ck = _gains(k, cfg, lr_scale)
@@ -152,6 +152,8 @@ def _spsa_split_update(loss_fn, params, k, delta, key, cfg, optimizer, opt_state
     loss0, aux = out if has_aux else (out, None)
     grads = torch.autograd.grad(loss0, c_leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(c_leaves, grads)]
+    if reduce_grads is not None:
+        grads = reduce_grads(grads)
     updates, opt_state = optimizer.update(grads, opt_state, c_leaves)
     optim.apply_updates(c_leaves, optim.scale_updates(updates, lr_scale))
     _set(q_leaves, [p - ak * ghat * d for p, d in zip(base, delta)])
@@ -172,6 +174,7 @@ def spsa_split_step(
     quantum_keys=("q",),
     has_aux: bool = False,
     lr_scale: Union[torch.Tensor, float] = 1.0,
+    reduce_grads: Optional[Callable] = None,
 ) -> Tuple:
     """The reference's split update (cg-hqpinn/...16q_effective.py:727-748):
     the quantum tensors (first name component in ``quantum_keys``) move by
@@ -181,12 +184,14 @@ def spsa_split_step(
     reference's third evaluation. ``params`` is named tensors (``dict(
     model.named_parameters())``), updated in place; ``optimizer`` must have
     been ``init``-ed on the classical partition only. Per-term metrics
-    (``has_aux``) ride the unperturbed evaluation. Returns ``(params,
-    opt_state, loss[, aux])``."""
+    (``has_aux``) ride the unperturbed evaluation. ``reduce_grads`` maps the
+    classical gradients before the optimizer (a data-parallel step's mean
+    over the mesh, ``Mesh.mean_grads``). Returns ``(params, opt_state,
+    loss[, aux])``."""
     q_leaves = list(split_params(params, quantum_keys)[0].values())
     delta = _rademacher_like(key, q_leaves)
     out = _spsa_split_update(loss_fn, params, k, delta, key, cfg, optimizer, opt_state,
-                             quantum_keys, has_aux, lr_scale)
+                             quantum_keys, has_aux, lr_scale, reduce_grads)
     return (params, *out)
 
 

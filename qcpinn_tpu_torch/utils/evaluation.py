@@ -71,11 +71,21 @@ def evaluate_cz_fields(
     runs on ``device`` (default: the card) in chunks of ``batch`` rows, the
     last one padded to the same shape (at 16 qubits one forward over all
     18k nodes would hold an [N, 2^16] state); the metrics are computed on
-    the host in numpy as JAX computes them. ``mesh`` (the data-parallel
-    evaluation) is not yet ported."""
+    the host in numpy as JAX computes them. ``mesh`` (``cz
+    --data-parallel`` eval) splits each chunk over its 'data' axis: each
+    rank runs its rows, the predictions are gathered in node order, and
+    every rank computes the same metrics."""
     if mesh is not None:
-        raise NotImplementedError(
-            "the data-parallel evaluation is not yet ported (ROADMAP queue 1, parallel)")
+        from ..parallel.collectives import gather_rows
+        from ..parallel.mesh import shard_batch
+
+        forward = model_apply
+
+        def model_apply(xb):
+            pred = forward(shard_batch(xb, mesh))
+            return gather_rows(pred, mesh.axis("data"), xb.shape[0])
+
+        device = mesh.device
     device = resolve_device(device)
     X = np.asarray(X, np.float32)
     Y = np.asarray(Y)

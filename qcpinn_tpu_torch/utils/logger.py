@@ -56,3 +56,22 @@ class Logging:
         """Close the ``output.log`` sink."""
         self._logger.removeHandler(self._handler)
         self._handler.close()
+
+
+class NullLogging:
+    """The ``Logging`` interface for a rank that writes nothing: in a
+    data-parallel run only rank 0 keeps the run directory and prints."""
+
+    output_dir = None
+
+    def get_output_dir(self):
+        return None
+
+    def print(self, *args, **kwargs) -> None:
+        pass
+
+    def dump_config(self, config, filename: str = "config.json"):
+        return None
+
+    def close(self) -> None:
+        pass

@@ -116,14 +116,30 @@ def test_flags_match_the_jax_cli(command):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["train", "--data-parallel"], "parallel"),
-    (["cz", "--phase", "pretrain", "--data", "x", "--amp", "2"], "Czochralski flagship"),
+    (["train", "--data-parallel", "--epochs", "2", "--num-qubits", "2", "--hidden-dim", "4",
+      "--batch-size", "6", "--eval-grid", "3", "--no-plots"], None),
+    (["cz", "--phase", "pretrain", "--data", "x", "--amp", "2"],
+     "--amp 2 does not divide the 1 available devices"),
 ])
 def test_unported_options_raise(argv, match, tmp_path):
-    out = ["--output-dir", str(tmp_path / "out")] if argv[0] == "train" else []
-    with pytest.raises(NotImplementedError, match=match):
-        cli.main([*argv, *out], device="cpu")
-    assert not os.path.exists(tmp_path / "out")  # refused before any run directory
+    """The parallel options, ported: a lone process runs as a world of one
+    (``train --data-parallel`` trains, rank 0 writing one run directory);
+    ``cz --amp 2`` on that world stops with JAX's message before any run
+    directory exists."""
+    import torch.distributed as dist
+
+    out = tmp_path / "out"
+    try:
+        if match is None:
+            assert cli.main([*argv, "--output-dir", str(out)], device="cpu") == 0
+            assert len(os.listdir(out)) == 1
+        else:
+            with pytest.raises(SystemExit, match=match):
+                cli.main([*argv, "--output-dir", str(out)], device="cpu")
+            assert not os.path.exists(out)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 JAX_METRICS_KEYS = {"command", "config", "metrics", "final_loss", "trainable_params"}

@@ -171,12 +171,34 @@ def test_cz_architecture_mismatch_fails_loudly(tmp_path, field, value):
 
 
 @pytest.mark.parametrize("flags", [["--amp", "2"], ["--data-parallel"]])
-def test_cz_parallel_flags_raise(tmp_path, flags):
+def test_cz_parallel_flags_raise(tmp_path, flags, capsys, small_data):
+    """The parallel flags, ported, in a lone process (a world of one):
+    ``--amp 2`` stops with JAX's message before any run directory;
+    ``--data-parallel`` pretrains (the quick check) and evaluates on the
+    mesh, the metrics those of the evaluation without it."""
+    import torch.distributed as dist
+
     out = tmp_path / "runs"
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, parallel"):
-        cli.main(["cz", "--phase", "eval", "--data", SYNTH, "--output-dir", str(out),
-                  *flags], device="cpu")
-    assert not out.exists()
+    try:
+        if flags == ["--amp", "2"]:
+            with pytest.raises(SystemExit, match="--amp 2 does not divide the 1 available"):
+                cli.main(["cz", "--phase", "eval", "--data", SYNTH, "--output-dir", str(out),
+                          *flags], device="cpu")
+            assert not out.exists()
+            return
+        ck = str(tmp_path / "q")
+        base = ["cz", "--data", small_data, "--n-qubits", "3", "--n-layers", "1",
+                "--trunk-width", "4", "--output-dir", str(out), "--no-plots"]
+        assert cli.main([*base, "--phase", "pretrain", "--epochs", "1", "--batch-size", "16",
+                         "--save", ck, *flags], device="cpu") == 0
+        assert "mesh {'data': 1, 'amp': 1}" in capsys.readouterr().out
+        assert cli.main([*base, "--phase", "eval", "--load", ck, *flags], device="cpu") == 0
+        got = _metrics(capsys.readouterr().out)
+        assert cli.main([*base, "--phase", "eval", "--load", ck], device="cpu") == 0
+        assert got == _metrics(capsys.readouterr().out)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def test_sidecar_lost_restores_stats_from_the_manifest(tmp_path, capsys):

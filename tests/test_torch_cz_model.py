@@ -149,8 +149,19 @@ def test_head_filter_and_sharding_refusal():
     assert set(mask) == {k for k, _ in tm.named_parameters()}
     assert {k for k, v in mask.items() if v} == {k for k, _ in tm.named_parameters()
                                                   if k.startswith("post.")}
-    with pytest.raises(NotImplementedError, match="parallel"):
-        tm.use_sharded(None)
+    # use_sharded, ported: on a world of one (amp 1) the same output
+    import torch.distributed as dist
+
+    from qcpinn_tpu_torch.parallel import make_mesh
+
+    x = torch.rand(5, 2, generator=torch.Generator().manual_seed(0))
+    want = tm(x)
+    try:
+        assert tm.use_sharded(make_mesh(device="cpu")) is tm
+        torch.testing.assert_close(tm(x), want, rtol=0, atol=1e-6)
+    finally:
+        tm.qlayer.sharded = None
+        dist.destroy_process_group()
 
 
 def test_layernorm_matches_jax():

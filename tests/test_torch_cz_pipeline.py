@@ -211,6 +211,29 @@ def test_shuffle_drops_a_rotating_tail():
     assert len({frozenset(range(10)) - u for u in used}) > 1
 
 
+def test_pretrain_epoch_and_finetune_step_go_with_their_last_reference():
+    """No reference cycle holds a PretrainEpoch or a FinetuneStep: on the
+    card each owns a CapturedStep whose graph and memory pool go with it,
+    by reference counts alone, without Python's cycle collector."""
+    import gc
+    import weakref
+
+    X, Y = _data(8)
+    cfg = tp.CzConfig(n_qubits=2, n_layers=1, epochs=1, batch_size=4, calib_size=4,
+                      shots=16)
+    ep = tp.make_pretrain_epoch(_model(), X, Y, DataStats(**STATS), cfg)
+    ep(1, torch.Generator().manual_seed(0))
+    ft = tp.FinetuneStep(_model(), X, Y, cfg, torch.Generator().manual_seed(1))
+    ft.run()
+    refs = [weakref.ref(ep), weakref.ref(ft)]
+    gc.disable()
+    try:
+        del ep, ft
+        assert [r() for r in refs] == [None, None]
+    finally:
+        gc.enable()
+
+
 def test_warm_start_and_fresh_init():
     X, Y = _data(8)
     cfg = tp.CzConfig(n_qubits=2, n_layers=1, epochs=0, batch_size=8, seed=5)
@@ -310,3 +333,113 @@ def test_finetune_scopes(scope):
     with pytest.raises(ValueError, match="unsupported train_scope"):
         tp.run_finetune(m, None, X, Y, DataStats(**STATS),
                         tp.CzConfig(n_qubits=3, n_layers=2, train_scope="trunk"))
+
+
+# -- the pipeline on a ('data', 'amp') = (2, 2) gloo world of 4 CPU processes
+# (torch_parallel_worker.cz_cases): the amp-sharded model against JAX's
+# apply and gradients, the data-parallel pretrain, the sharded full-scope
+# finetune and the evaluation over the mesh against single-device runs
+
+CZ_FORWARD = dict(n=5, L=1, width=8)  # a wire group split: sharded and local wires
+CZ_RUNS = dict(n=3, L=1, width=8)  # a group over every wire
+
+
+def _quiet():
+    return type("L", (), {"print": lambda self, m: None})()
+
+
+@pytest.fixture(scope="module")
+def cz_world():
+    from torch_parallel_worker import cz_cases, start_world
+
+    jm = JModel(CZ_FORWARD["n"], CZ_FORWARD["L"], width=CZ_FORWARD["width"], remat=False)
+    fwd_params = jax.tree_util.tree_map(np.asarray, jm.init(jax.random.PRNGKey(3)))
+    run_params = jax.tree_util.tree_map(np.asarray, JModel(
+        CZ_RUNS["n"], CZ_RUNS["L"], width=CZ_RUNS["width"], remat=False).init(
+            jax.random.PRNGKey(5)))
+    X, Y = _data(64, seed=3)
+    pre = dict(n_qubits=3, n_layers=1, epochs=2, batch_size=16, physics_warmup=0,
+               physics_ramp=1, physics_normalize="balanced", log_every=1)
+    ft = dict(n_qubits=3, n_layers=1, finetune_epochs=2, calib_size=4, shots=64,
+              train_scope="full", finetune_lr=1e-2, noise_readout=0.02)
+    payload = {
+        "data": 2, "amp": 2,
+        "forward": dict(**CZ_FORWARD, params=fwd_params, x=X[:12]),
+        "pretrain": dict(**CZ_RUNS, params=run_params, cfg=pre, stats=STATS, X=X, Y=Y),
+        "finetune": dict(**CZ_RUNS, params=run_params, cfg=ft, stats=STATS, X=X, Y=Y),
+        "eval": dict(**CZ_RUNS, params=run_params, X=X[:40], Y=Y[:40], batch=16),
+    }
+    future = start_world(4, cz_cases, payload)
+
+    def j_loss(p):
+        return jnp.sum(jm.apply(p, jnp.asarray(X[:12])) ** 2)
+
+    refs = {"forward": np.asarray(jax.jit(jm.apply)(fwd_params, jnp.asarray(X[:12]))),
+            "forward_grads": jax.tree_util.tree_map(
+                np.asarray, jax.jit(jax.grad(j_loss))(fwd_params))}
+    return payload, refs, future.result()
+
+
+def test_use_sharded_matches_jax(cz_world):
+    """``Hybrid16QPINN.use_sharded`` at data 2 x amp 2: the forward within
+    5e-5 of JAX's apply, the gradients of sum(pred^2) within 2e-4 x
+    max|ref| of each leaf (its wire group 0 split between a sharded wire and
+    three local ones)."""
+    _, refs, res = cz_world
+    for r in res:
+        np.testing.assert_allclose(r["forward"], refs["forward"], atol=5e-5)
+        got = jax.tree_util.tree_leaves(r["forward_grads"])
+        want = jax.tree_util.tree_leaves(refs["forward_grads"])
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a, b, atol=2e-4 * max(np.abs(b).max(), 1e-6))
+
+
+def _single(c, sharded_cfg):
+    m = Hybrid16QPINN(c["n"], c["L"], width=c["width"], remat=False, device="cpu")
+    m.load_state_dict(params_from_jax(c["params"]))
+    return m, tp.CzConfig(**sharded_cfg)
+
+
+def test_data_parallel_pretrain_matches_single_device(cz_world):
+    """The data-parallel, amp-sharded pretrain follows the single-device
+    history (rtol 1e-4 / atol 1e-6, JAX's own limit), the shuffle alike on
+    every rank; a batch that does not split over 'data' raises JAX's
+    error."""
+    payload, _, res = cz_world
+    c = payload["pretrain"]
+    m, cfg = _single(c, c["cfg"])
+    _, want = tp.run_pretrain(m, c["X"], c["Y"], DataStats(**STATS), cfg, logger=_quiet(),
+                              params=c["params"])
+    for r in res:
+        np.testing.assert_allclose(r["pretrain"], want, rtol=1e-4, atol=1e-6)
+        assert r["batch_error"] == "batch_size 3 must divide over the 'data' axis of 2 devices"
+
+
+def test_sharded_full_scope_finetune_matches_single_device(cz_world):
+    """The full-scope finetune through the sharded circuit: the
+    parameter-shift estimator's batched shifted evaluations (vmap) run the
+    collectives, and every amp rank draws the same shots from a generator
+    seeded alike, so the history is the single-device one."""
+    payload, _, res = cz_world
+    c = payload["finetune"]
+    m, cfg = _single(c, c["cfg"])
+    _, want = tp.run_finetune(m, None, c["X"], c["Y"], DataStats(**STATS), cfg,
+                              logger=_quiet())
+    for r in res:
+        np.testing.assert_allclose(r["finetune"], want, rtol=1e-4, atol=1e-6)
+
+
+def test_evaluate_cz_fields_over_the_mesh(cz_world):
+    """Each chunk split over 'data' and gathered in node order: every rank
+    reports the metrics of the evaluation without a mesh."""
+    from qcpinn_tpu_torch.utils.evaluation import evaluate_cz_fields
+
+    payload, _, res = cz_world
+    c = payload["eval"]
+    m, _ = _single(c, {})
+    want = evaluate_cz_fields(m, c["X"], c["Y"], batch=c["batch"], device="cpu")
+    for r in res:
+        assert set(r["eval"]) == set(want)
+        for k, v in want.items():
+            np.testing.assert_allclose(r["eval"][k], v, rtol=1e-5, err_msg=k)

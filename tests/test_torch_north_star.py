@@ -314,8 +314,17 @@ def test_train_step_refuses_unported_modes():
     with pytest.raises(ValueError, match="adaptive balancers need"):
         t_make_train_step(None, t_fwd, terms, opt, TConfig(gradient_mode="spsa"),
                           balancer="ema")
-    with pytest.raises(NotImplementedError, match="queue 1, parallel"):
-        t_make_train_step(None, t_fwd, terms, opt, cfg, mesh=object())
+    # the device mesh, ported: a world of one is taken, not refused
+    import torch.distributed as dist
+
+    from qcpinn_tpu_torch.parallel import make_mesh
+
+    try:
+        step_fn, _ = t_make_train_step(None, t_fwd, terms, opt, cfg,
+                                       mesh=make_mesh(device="cpu"))
+        assert callable(step_fn)
+    finally:
+        dist.destroy_process_group()
     with pytest.raises(ValueError, match="balancer"):
         t_make_train_step(None, t_fwd, terms, opt, cfg, balancer="bogus")
 

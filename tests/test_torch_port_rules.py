@@ -349,7 +349,8 @@ def test_warp_route_takes_the_cta_size_that_keeps_most_warps(monkeypatch):
 
 
 HW_MODULES = ("ops.measure", "train.hardware_grad", "train.spsa", "train.staged",
-              "train.lbfgs")
+              "train.lbfgs", "parallel.mesh", "parallel.sharded_sv",
+              "parallel.sharded_block")
 
 
 def _public(mod):
@@ -367,26 +368,26 @@ def test_hardware_modules_have_the_jax_names():
         want = _public(importlib.import_module(f"qcpinn_tpu.{name}"))
         got = _public(importlib.import_module(f"qcpinn_tpu_torch.{name}"))
         assert want <= got, (name, sorted(want - got))
-    from qcpinn_tpu import ops as jops, train as jtrain
-    from qcpinn_tpu_torch import ops as tops, train as ttrain
+    from qcpinn_tpu import ops as jops, parallel as jpar, train as jtrain
+    from qcpinn_tpu_torch import ops as tops, parallel as tpar, train as ttrain
 
     assert set(jops.__all__) <= set(tops.__all__)
     assert set(jtrain.__all__) <= set(ttrain.__all__)
+    assert set(jpar.__all__) <= set(tpar.__all__)
 
 
 def test_no_refusal_names_the_hardware_modes():
-    """Every NotImplementedError of the port names an item still to come;
-    none names the hardware-fidelity modes, which are ported."""
+    """The port covers the JAX package: no NotImplementedError of the port
+    names the hardware-fidelity modes, the parallel layer or anything "not
+    yet ported"."""
     refusal = re.compile(r"NotImplementedError\((?:[^()]|\([^()]*\))*\)", re.S)
-    seen = 0
     for root, _, files in os.walk(PKG_DIR):
         for f in files:
             if f.endswith(".py"):
                 with open(os.path.join(root, f)) as fh:
                     for m in refusal.finditer(fh.read()):
-                        seen += 1
-                        assert "hardware-fidelity" not in m.group(0), (f, m.group(0))
-    assert seen >= 4  # parallel: cli train and cz, train(), the Cz model and pipeline
+                        for word in ("hardware-fidelity", "parallel", "not yet ported"):
+                            assert word not in m.group(0), (f, m.group(0))
 
 
 def test_hardware_modes_default_to_the_card(monkeypatch, tmp_path):

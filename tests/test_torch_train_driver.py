@@ -293,9 +293,19 @@ def test_unported_modes_raise():
         train(TClassical(TConfig(solver="Classical", classic_network=(3, 4, 1)), device="cpu"),
               TConfig(solver="Classical", gradient_mode="parameter-shift", epochs=1), terms,
               diffusion_operator, device="cpu")
-    with pytest.raises(NotImplementedError, match="parallel"):
-        train(TDV(cfg, device="cpu"), cfg, terms, diffusion_operator, mesh=object(),
-              device="cpu")
+    # mesh=, ported: a world of one trains the single-device trajectory
+    import torch.distributed as dist
+
+    from qcpinn_tpu_torch.parallel import make_mesh
+
+    cfg2 = TConfig(num_qubits=2, classic_network=(3, 4, 1), epochs=2, batch_size=6)
+    _, want = train(TDV(cfg2, device="cpu"), cfg2, terms, diffusion_operator, device="cpu")
+    try:
+        _, got = train(TDV(cfg2, device="cpu"), cfg2, terms, diffusion_operator,
+                       mesh=make_mesh(device="cpu"), device="cpu")
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_allclose(got, want, rtol=1e-6)
     with pytest.raises(ValueError, match="inject_balancer_params"):
         make_train_step(TDV(cfg, device="cpu"), diffusion_operator, terms,
                         topt.make_optimizer(1e-3), cfg, balancer="ema")
@@ -339,3 +349,36 @@ def test_profile_hook_writes_a_trace(monkeypatch, tmp_path):
     train(TClassical(cfg, device="cpu"), cfg, _terms(False), t_get_operator("diffusion", "rev"),
           logger=log, device="cpu")
     assert not any("profiler" in line for line in log.lines)
+
+
+def test_captured_step_holds_its_owner_weakly():
+    """A CapturedStep built on its owner's method (PretrainEpoch,
+    FinetuneStep, CrystalTrainer) makes no reference cycle: the owner, and
+    with it the graph and its memory pool, goes with its last reference,
+    without Python's cycle collector. A closure is held as given."""
+    import gc
+    import weakref
+
+    from qcpinn_tpu_torch.train.loop import CapturedStep
+
+    class Owner:
+        def __init__(self):
+            self.captured = CapturedStep(self.step)
+
+        def step(self):
+            return torch.ones(())
+
+    owner = Owner()
+    captured = owner.captured
+    assert float(captured.step()) == 1.0
+    ref = weakref.ref(owner)
+    gc.disable()
+    try:
+        del owner
+        assert ref() is None
+    finally:
+        gc.enable()
+    with pytest.raises(ReferenceError, match="is gone"):
+        captured.step()
+    closure = CapturedStep(lambda: torch.zeros(()))
+    assert float(closure.step()) == 0.0
