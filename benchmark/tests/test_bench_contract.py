@@ -1,0 +1,43 @@
+"""BENCHMARK.json against the files the harness finds by name."""
+
+import json
+import os
+
+from lib.spec import BENCH_DIR, load
+
+ROOT = os.path.dirname(BENCH_DIR)
+BENCH = json.load(open(os.path.join(ROOT, "BENCHMARK.json")))
+
+
+def test_every_cell_finds_its_files():
+    for w in BENCH["workloads"]:
+        cell = load(w["name"])
+        assert set(cell.limits) == {"loss_gap", "grad_gap", "update_gap"}
+        assert os.path.exists(os.path.join(BENCH_DIR, "systems", cell.traffic["system"] + ".py"))
+        assert os.path.exists(os.path.join(BENCH_DIR, "reference", cell.config["name"] + ".py"))
+    for m in BENCH["end_to_end"] + BENCH["per_layer"]:
+        assert os.path.exists(os.path.join(BENCH_DIR, "metrics", m["name"] + ".py"))
+    for m in BENCH["per_layer"]:
+        assert m["moves"] in {e["name"] for e in BENCH["end_to_end"]}
+
+
+def test_every_span_names_a_call_of_its_system():
+    import functools
+
+    import torch
+
+    from conftest import small_cell
+    from lib.spec import spans, system
+
+    for w in BENCH["workloads"]:
+        cell = small_cell(w["name"])
+        built = system(cell.traffic).build(cell.config, cell.traffic, 5, torch.device("cpu"))
+        paths = spans(cell.traffic["system"])
+        assert paths
+        for path in paths.values():
+            assert callable(functools.reduce(getattr, path.split("."), built)), path
+
+
+def test_configuration_files_are_the_named_ones():
+    for c in BENCH["configs"]:
+        assert json.load(open(os.path.join(ROOT, c["file"])))["name"] == c["name"]
