@@ -1,0 +1,10 @@
+"""Device ms a step of the evolution engine's reverse pass, its three
+calls, inside the gradient call (the span ``engine.bwd``), from the
+program's own span marks over the replays of the captured step (median of
+``lib/program_spans.py``'s measured replays)."""
+
+from lib import program_spans
+
+
+def read(ctx):
+    return program_spans.ms(ctx, "engine.bwd")

@@ -63,8 +63,8 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                version from the same seed: 13 steps each (3 eager warm-ups,
                then 10 replays), every loss within rtol 2e-5, every parameter
                within 2e-4 * max(|ref|, 1e-3); then eager, graph, graph, eager
-               in one process: ms a step, launches a step, device time and
-               idle share of the unprofiled step.
+               in one process: ms a step, launches a step and device time
+               a step.
 6c. stage1_jet the 16q stage-1 step on its forward jet (physics/jet.py),
                graphed, against the same step on the jet's plain version
                (the nested jvps of diffusion_operator_fwd), eager, from the
@@ -148,7 +148,7 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                same step eager from the same seed, 5 steps (3 eager
                warm-ups, the capture, a replay), limits as in 6b; the eager
                ms a step (its last 4 steps), the graphed one (10 replays)
-               with its launches, device time and idle share (a 3-step
+               with its launches and device time (a 3-step
                profile); the CLI run with every kernel and plain-version launch
                counter set to 0 just before and all still 0 after (the
                path runs no kernel of the package, as in JAX); its final
@@ -176,7 +176,7 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                gradient mode's ``cli train`` step (DV cascade 4q) graphed
                against eager: bit-equal over 5 steps with shots=None,
                means within 3 standard errors over 20 steps with shots,
-               ms a step, launches and idle share; (e) the two JAX
+               ms a step and launches; (e) the two JAX
                records' SPSA commands (artifacts/spsa_ab_*.json) at 300
                epochs, kernel counters 0.
 6g. cz         the Czochralski flagship (no kernel of the package on this
@@ -189,7 +189,7 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                wide384_400 record's command (16q, trunk 384, B = 256,
                balanced, physics engaged) graphed against eager over 5 steps,
                bit-equal (losses, parameters, EMA state), ms a step, a
-               profile of each (launches, device ms, idle share), the peak
+               profile of each (launches, device ms), the peak
                memory of each, and the peak at B = 512 with remat (the
                forward-mode residual in chunks of 256 rows); head- and
                full-scope finetune steps from that checkpoint at --shots
@@ -197,6 +197,15 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                against eager (means within 3 standard errors over 10 sampled
                steps), ms a step, the circuit evaluations a step (289 in full
                scope) and the leaves that moved.
+6g2. spans     the span recorder (qcpinn_tpu_torch/utils/spans.py) on that
+               pretrain step: switching spans on captures again, once; 5
+               replays with spans on bit-equal to 5 with them off from the
+               same start (losses, parameters, EMA state); the stamps
+               monotonic and nested, each span's device ms; ms a step with
+               spans on against off, 50 replays each after 40 warm ones, in
+               turns on, off, off, on: the cost; a profiled epoch of 4
+               batches: one qc_span_mark an edge a replay, the device's
+               longest idle gaps put down to the qc:: host spans.
 6h. cv         the CV photonic solver through ``cli train --solver CV`` (no
                kernel of the package on this path; every counter 0): the
                step of the cv_diffusion_class1 record's command (4 qumodes,
@@ -204,7 +213,7 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                and of the cutoff-20 command (2 qumodes), each graphed against
                eager from the same seed, bit-equal over 5 steps, with the
                eager and graphed ms a step and a profile (launches, device
-               ms, idle share; 3 steps of class 1, 1 of the others); the
+               ms; 3 steps of class 1, 1 of the others); the
                class-1 command for CV_EPOCHS
                epochs (755 trainable parameters, as the record); the
                QCPINN_PROFILE_DIR hook of ``train()`` on a Hopfield run (one
@@ -276,6 +285,7 @@ Measurements beside the smoke test:
                                                # evals, the three finetune records'
                                                # commands, the balanced pretrain
                                                # under a 20-minute budget
+    python3 chip_smoke.py --spans              # device, spans (builds span_mark.cu)
     python3 chip_smoke.py --cv-crystal         # device, cv, crystal
     python3 chip_smoke.py --cv-records         # JAX's CV records' three commands in
                                                # full and the crystal config, each
@@ -1329,7 +1339,7 @@ def graph_phase(dev, smi):
     step's loss within rtol 2e-5 and every parameter after the last step
     within 2e-4 * max(|ref|, 1e-3). Then, in one process and in the order
     eager, graph, graph, eager, the ms a step, and from a torch.profiler
-    window the launches a step, the device time and the idle share."""
+    window the launches a step and the device time."""
     import torch
 
     from qcpinn_tpu_torch import bench, north_star as ns
@@ -1816,7 +1826,7 @@ def hw_cli_modes(dev):
     shots=None WARMUP_STEPS + 2 steps bit-equal (losses and parameters);
     with shots HW_SHOT_STEPS steps whose mean losses agree within 3
     standard errors. Then the graphed ms a step (10 replays) and a 3-step
-    profile: launches, device time, idle share."""
+    profile: launches, device time."""
     import torch
 
     from qcpinn_tpu_torch import bench
@@ -2137,7 +2147,7 @@ def cz_pretrain(dev):
     step against the eager one, CZ_STEPS steps on the same batches (losses,
     parameters and the EMA state bit-equal); ms a step eager (after its
     first step) and graphed, a 3-step profile of the graphed step
-    (launches, device ms, idle share), the peak memory of each; then the
+    (launches, device ms), the peak memory of each; then the
     peak memory at B = 512 with remat (its forward-mode residual in chunks
     of 256 rows)."""
     import torch
@@ -2441,6 +2451,182 @@ def cz_check():
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
 
 
+# -- the span recorder on the Cz pretrain step (phase spans; --spans) -----------
+
+SPANS_PARITY = 5  # replays on the same batches, spans on against off
+SPANS_WARM = 40  # replays after a fresh capture before timing (it runs slower
+# for its first 8-38 replays)
+SPANS_TIMED = 50  # replays timed in each of the on, off, off, on turns
+SPANS_EPOCH_BATCHES = 4  # the profiled epoch's batches
+SPANS_PHASES = ("data_forward", "residual", "backward", "optimizer")
+
+
+def idle_gaps(events, top=8):
+    """The device's longest idle gaps over the profiled span of ``events``
+    (a torch.profiler trace: kernels, copies and memsets, not the device
+    shadows of host spans), each with the innermost ``qc::`` host span open
+    at its middle (else the innermost host event); (what, ms), longest
+    first, and the device's busy share of the span."""
+    from torch.autograd import DeviceType
+
+    cpu = [e for e in events if e.device_type == DeviceType.CPU]
+    span = next(e for e in cpu if e.name == "smoke::epoch")
+    lo, hi = span.time_range.start, span.time_range.end
+    dev = sorted((max(e.time_range.start, lo), min(e.time_range.end, hi)) for e in events
+                 if e.device_type != DeviceType.CPU and not getattr(e, "is_user_annotation", False)
+                 and e.time_range.end > lo and e.time_range.start < hi)
+    busy, gaps, at = 0.0, [], lo
+    for a, b in dev:
+        if a > at:
+            gaps.append((a - at, at))
+        busy += max(0.0, b - max(a, at))
+        at = max(at, b)
+    gaps.append((hi - at, at))
+
+    def doing(t):
+        covering = [e for e in cpu if e.time_range.start <= t <= e.time_range.end
+                    and e.name != "smoke::epoch"]
+        qc = [e for e in covering if e.name.startswith("qc::")]
+        best = min(qc or covering, key=lambda e: e.time_range.end - e.time_range.start,
+                   default=None)
+        return best.name if best is not None else "host outside any event"
+
+    rows = [(doing(t + g / 2), g * 1e-3) for g, t in sorted(gaps, reverse=True)[:top] if g > 0]
+    return rows, busy / (hi - lo)
+
+
+def spans_phase(dev, smi):
+    """Phase ``spans``: the span recorder (``utils/spans.py``) on the
+    pretrain step of the wide384_400 record's command (B = 256). Two epochs
+    from its checkpoint, one after the other, each warmed up and captured
+    with spans off, then SPANS_PARITY replays on the same batches, the
+    second with spans switched on (it captures again, once): bit-equal
+    (losses, parameters, EMA state); each on replay's stamps are read
+    (monotonic, or ``read`` raises; nested, or the recorder raises) with
+    the four phases' sum against ``step``. The
+    cost: ms a step with spans on and off over SPANS_TIMED replays each after
+    SPANS_WARM warm ones, in turns on, off, off, on (a capture at each
+    switch). Last, one profiled epoch of SPANS_EPOCH_BATCHES batches through
+    ``PretrainEpoch.__call__`` with spans on: its ``qc_span_mark`` kernels
+    against the recorded edges, and the device's longest idle gaps, each
+    put down to the ``qc::`` host span open then."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from qcpinn_tpu_torch.data.cz_loader import DataStats, load_cz_data
+    from qcpinn_tpu_torch.train.loop import WARMUP_STEPS
+    from qcpinn_tpu_torch.utils import spans
+
+    restored = cz_tree(CZ_CKPT)
+    stats = DataStats.from_dict(restored["stats"])
+    X, Y, _ = load_cz_data(CZ_DATA, stats)
+    tree = restored["bundle"]["params"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    perm = torch.randperm(len(X), generator=gen, device=dev)
+    Xd, Yd = torch.as_tensor(X, device=dev)[perm], torch.as_tensor(Y, device=dev)[perm]
+    b = CZ_PRETRAIN["batch_size"]
+    nb = len(X) // b
+
+    def steps(ep, n):
+        out = []
+        for _ in range(n):
+            i = ep.taken % nb
+            ep.taken += 1
+            ep.xb.copy_(Xd[i * b:(i + 1) * b])
+            ep.yb.copy_(Yd[i * b:(i + 1) * b])
+            out.append(ep._step().clone())
+        return torch.stack(out)
+
+    row = {"batch": b, "width": CZ_WIDTH, "n_qubits": CZ_QUBITS, "epoch": CZ_EPOCH}
+    t0 = time.perf_counter()
+    runs = {}
+    for on in (False, True):  # one epoch at a time: a graph's memory each
+        model, ep = cz_pretrain_epoch(dev, tree, X, Y, stats, b, False)
+        ep.taken = 0
+        steps(ep, WARMUP_STEPS + 1)  # the warm-ups and the capture, spans off
+        spans.enable(on)
+        losses, readings = [], []
+        for _ in range(SPANS_PARITY):
+            losses.append(steps(ep, 1))
+            if on:
+                readings.append(spans.read())
+        runs[on] = (torch.cat(losses), {k: p.detach().clone() for k, p in
+                                        model.named_parameters()},
+                    {k: v.clone() for k, v in ep.ema.items()}, ep.captured.captured)
+        if on:
+            row["edges"] = len(spans.layout())
+        else:
+            del model, ep
+            torch.cuda.empty_cache()
+    (l_off, p_off, e_off, c_off), (l_on, p_on, e_on, c_on) = runs[False], runs[True]
+    bit_equal = (torch.equal(l_on, l_off)
+                 and all(torch.equal(v, p_on[k]) for k, v in p_off.items())
+                 and all(torch.equal(v, e_on[k]) for k, v in e_off.items()))
+    row.update({"parity_replays": SPANS_PARITY, "bit_equal": bit_equal,
+                "captures_off": c_off, "captures_after_switch": c_on,
+                "spans_ms": {k: [r[k]["ms"] for r in readings] for k in readings[0]},
+                "self_ms": {k: [r[k]["self_ms"] for r in readings] for k in readings[0]},
+                "phases_over_step": [sum(r[p]["ms"] for p in SPANS_PHASES) / r["step"]["ms"]
+                                     for r in readings],
+                "parity_s": time.perf_counter() - t0})
+    if not bit_equal or c_on != 2 or c_off != 1:
+        raise SystemExit(f"spans: on against off {row}")
+
+    turns = []
+    for on in (True, False, False, True):
+        captures = ep.captured.captured
+        spans.enable(on)
+        steps(ep, SPANS_WARM)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        steps(ep, SPANS_TIMED)
+        end.record()
+        end.synchronize()
+        turns.append({"spans": on, "ms_per_step": start.elapsed_time(end) / SPANS_TIMED,
+                      "captured_again": ep.captured.captured - captures})
+    spans.enable(False)
+    on_ms = statistics.mean(t["ms_per_step"] for t in turns if t["spans"])
+    off_ms = statistics.mean(t["ms_per_step"] for t in turns if not t["spans"])
+    row.update({"turns": turns, "cost_ms": on_ms - off_ms, "cost_share": on_ms / off_ms - 1})
+    del ep, model
+    torch.cuda.empty_cache()
+
+    rows = SPANS_EPOCH_BATCHES * b
+    _, small = cz_pretrain_epoch(dev, tree, X[:rows], Y[:rows], stats, b, False)
+    epoch_gen = torch.Generator(device=dev).manual_seed(1)
+    with spans.turned_on():
+        small(CZ_EPOCH, epoch_gen)  # the warm-ups and the capture
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with record_function("smoke::epoch"):
+                small(CZ_EPOCH + 1, epoch_gen)
+                torch.cuda.synchronize()
+        edges = len(spans.layout())
+    events = prof.events()
+    marks = sum(1 for e in events if e.name == "qc_span_mark")
+    gaps, busy = idle_gaps(events)
+    row["profiled_epoch"] = {"batches": SPANS_EPOCH_BATCHES, "marks": marks,
+                             "edges_times_replays": edges * SPANS_EPOCH_BATCHES,
+                             "busy_share": busy, "idle_gaps_ms": gaps,
+                             "host_spans": sorted({e.name for e in events
+                                                   if e.name.startswith("qc::")})}
+    if marks != edges * SPANS_EPOCH_BATCHES:
+        raise SystemExit(f"spans: {marks} marks in the trace of {SPANS_EPOCH_BATCHES} "
+                         f"replays of {edges} edges")
+    del small
+    torch.cuda.empty_cache()
+    emit({"phase": "spans", **row, "seconds": time.perf_counter() - t0, "card": smi})
+
+
+def spans_check():
+    """``--spans``: the device phase's checks, then the spans phase alone
+    (builds only the mark kernel)."""
+    t_start = time.perf_counter()
+    dev, smi = cz_device()
+    spans_phase(dev, smi)
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
+
+
 # -- the CV photonic solver and the crystal pipeline (phases cv, crystal;
 # --cv-crystal, --cv-records) ---------------------------------------------------
 
@@ -2471,8 +2657,7 @@ def cv_step_row(tag, flags, dev, profile_steps=3):
     """The ``cli train FLAGS`` step graphed against eager from the same
     seed over WARMUP_STEPS + 2 steps, bit-equal (losses and parameters);
     the eager ms a step (after its first), the graphed one (10 replays)
-    and a profile of ``profile_steps`` of it (launches, device ms, idle
-    share)."""
+    and a profile of ``profile_steps`` of it (launches, device ms)."""
     import torch
 
     from qcpinn_tpu_torch import bench
@@ -4042,6 +4227,8 @@ def main():
         return cz_phase_check()
     if sys.argv[1:] == ["--cz"]:
         return cz_check()
+    if sys.argv[1:] == ["--spans"]:
+        return spans_check()
     if sys.argv[1:] == ["--cv-crystal"]:
         return cv_crystal_check()
     if sys.argv[1:] == ["--cv-records"]:
@@ -4192,6 +4379,8 @@ def main():
 
     # -- 6g. the Czochralski flagship (no kernel on this path) ---------------
     cz_phase(dev, smi)
+    torch.cuda.empty_cache()
+    spans_phase(dev, smi)
     torch.cuda.empty_cache()
 
     # -- 6h-6i. the CV solver and the crystal pipeline (no kernel on these) --

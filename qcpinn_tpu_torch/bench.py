@@ -159,9 +159,8 @@ def run(trainer: Trainer, steps: int = 30, trials: int = 3) -> float:
 def profile(trainer, ms_per_step: float, steps: int = 5, top: int = 12) -> dict:
     """Device time per step by kernel name (torch.profiler over ``steps``
     calls of ``trainer.step()``; it sees the kernels inside a graph's
-    replay) and the device's idle share of ``ms_per_step``, the step's time
-    measured without the profiler (whose own overhead stretches the
-    profiled wall)."""
+    replay) beside ``ms_per_step``, the step's time measured without the
+    profiler (whose own overhead stretches the profiled wall)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as prof
 
@@ -182,7 +181,6 @@ def profile(trainer, ms_per_step: float, steps: int = 5, top: int = 12) -> dict:
     return {
         "ms_per_step": ms_per_step,
         "device_ms_per_step": device,
-        "device_idle_share": 1.0 - device / ms_per_step,
         "device_launches_per_step": launches / steps,
         "top_device_ms_per_step": rows[:top],
     }

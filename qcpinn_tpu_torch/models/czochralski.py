@@ -306,13 +306,29 @@ class Hybrid16QPINN(nn.Module):
         """``q_apply(weights, q_in, key) -> [B, n]`` overrides the circuit
         call: how the parameter-shift estimator
         (``hardware_grad.make_hw_apply_cz``) plugs in for full-scope
-        shot-noise training."""
+        shot-noise training.
+
+        The circuit call is the span ``engine``; with spans on, its reverse
+        pass is the span ``engine.bwd``, marked at its output and at its
+        input: ``q_in`` where it reports a gradient, else the weights (a
+        tensor inside ``torch.func.jvp`` reports none)."""
+        # imported here: the utils package imports the train package, which
+        # imports this module
+        from ..utils import spans
+
         h = self.encode(x)
         q_in = math.pi * torch.tanh(nc.mlp_apply(self.to_quantum, h))
-        if q_apply is not None:
-            q_out = q_apply(self.q, q_in, key)
+        weights = self.q
+        if q_in.requires_grad:
+            q_in = spans.reverse_end("engine.bwd", q_in)
         else:
-            q_out = self.qlayer.apply(self.q, q_in, shots=shots, key=key, noise=noise)
+            weights = spans.reverse_end("engine.bwd", weights)
+        with spans.span("engine", q_in):
+            if q_apply is not None:
+                q_out = q_apply(weights, q_in, key)
+            else:
+                q_out = self.qlayer.apply(weights, q_in, shots=shots, key=key, noise=noise)
+        q_out = spans.reverse_begin("engine.bwd", q_out)
         if detach_quantum:
             q_out = q_out.detach()
         c_skip = torch.tanh(nc.mlp_apply(self.classical_skip, h))

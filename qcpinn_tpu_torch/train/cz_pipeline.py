@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import time
 from typing import Optional, Tuple
 
@@ -43,8 +44,9 @@ from ..parallel.collectives import psum
 from ..parallel.mesh import replicate, shard_batch
 from ..physics.cylindrical import cz_residuals
 from ..physics.operators_fwd import cz_residuals_fwd
+from ..utils import spans
 from . import optim
-from .loop import CapturedStep
+from .loop import CapturedStep, profile_trace
 
 PHYS_KEYS = ("cont", "mom_r", "mom_z", "swirl", "energy")
 EMA_KEYS = ("data",) + PHYS_KEYS + ("abs_data", "abs_phys")
@@ -239,66 +241,80 @@ class PretrainEpoch:
         return value + link, terms
 
     def batch_loss(self, xb, yb, phys_w):
+        """(total, data loss, physics total, the new EMA state): the spans
+        ``data_forward`` (the model and the data loss; again after the
+        residual, the EMA update and the loss's combination) and
+        ``residual``."""
         cfg, ema = self.cfg, self.ema
-        pred = self.model(xb)
-        sq = (pred - yb) ** 2
-        data_loss = torch.mean(sq if self.fw is None else sq * self.fw)
-        if self.data_only:
-            phys_total = torch.zeros((), device=xb.device)
-            phys_terms = {k: torch.zeros((), device=xb.device) for k in PHYS_KEYS}
-        elif self.chunk_rows is not None:
-            phys_total, phys_terms = self.chunked_residual(xb)
-        else:
-            phys_total, phys_terms = self.residual(xb)
-        if self.mesh is not None:
-            # every term is a mean over this rank's rows: its share of the
-            # global mean, summed over 'data' in one all-reduce
-            parts = psum(torch.stack([data_loss, phys_total, *phys_terms.values()])
-                         * self.frac, self.mesh.axis("data"))
-            data_loss, phys_total = parts[0], parts[1]
-            phys_terms = dict(zip(phys_terms, parts[2:]))
-        # EMA-normalized physics weight (:510-513): the weights are EMA'd
-        # relative magnitudes; only the mean physics weight scales the loss
-        detached = {"data": data_loss.detach(),
-                    **{k: v.detach() for k, v in phys_terms.items()}}
-        avg = torch.clamp(sum(detached.values()) / len(detached), min=1e-12)
-        beta = cfg.ema_beta
-        new_ema = {k: beta * ema[k] + (1.0 - beta) * (v / avg) for k, v in detached.items()}
-        new_ema["abs_data"] = beta * ema["abs_data"] + (1.0 - beta) * detached["data"]
-        new_ema["abs_phys"] = beta * ema["abs_phys"] + (1.0 - beta) * phys_total.detach()
-        if cfg.physics_normalize == "coupled":
-            from ..models.si_gated import coupled_weighting_apply
+        with spans.span("data_forward", xb):
+            pred = self.model(xb)
+            sq = (pred - yb) ** 2
+            data_loss = torch.mean(sq if self.fw is None else sq * self.fw)
+        with spans.span("residual", xb):
+            if self.data_only:
+                phys_total = torch.zeros((), device=xb.device)
+                phys_terms = {k: torch.zeros((), device=xb.device) for k in PHYS_KEYS}
+            elif self.chunk_rows is not None:
+                phys_total, phys_terms = self.chunked_residual(xb)
+            else:
+                phys_total, phys_terms = self.residual(xb)
+        with spans.span("data_forward", xb):
+            if self.mesh is not None:
+                # every term is a mean over this rank's rows: its share of the
+                # global mean, summed over 'data' in one all-reduce
+                parts = psum(torch.stack([data_loss, phys_total, *phys_terms.values()])
+                             * self.frac, self.mesh.axis("data"))
+                data_loss, phys_total = parts[0], parts[1]
+                phys_terms = dict(zip(phys_terms, parts[2:]))
+            # EMA-normalized physics weight (:510-513): the weights are EMA'd
+            # relative magnitudes; only the mean physics weight scales the loss
+            detached = {"data": data_loss.detach(),
+                        **{k: v.detach() for k, v in phys_terms.items()}}
+            avg = torch.clamp(sum(detached.values()) / len(detached), min=1e-12)
+            beta = cfg.ema_beta
+            new_ema = {k: beta * ema[k] + (1.0 - beta) * (v / avg) for k, v in detached.items()}
+            new_ema["abs_data"] = beta * ema["abs_data"] + (1.0 - beta) * detached["data"]
+            new_ema["abs_phys"] = beta * ema["abs_phys"] + (1.0 - beta) * phys_total.detach()
+            if cfg.physics_normalize == "coupled":
+                from ..models.si_gated import coupled_weighting_apply
 
-            # the ramp in [0, 1] gates the physics term as the other modes'
-            # warmup does; the magnitudes come from the learned eps
-            ramp = phys_w / max(cfg.physics_weight, 1e-12)
-            total = coupled_weighting_apply(self.model.loss_bal, data_loss,
-                                            phys_total * ramp, target_ratio=cfg.coupled_ratio)
-        elif cfg.physics_normalize == "balanced":
-            scale = new_ema["abs_data"] / torch.clamp(new_ema["abs_phys"], min=1e-30)
-            total = data_loss + phys_w * phys_total * scale.detach()
-        else:
-            mean_phys_w = sum(new_ema[k] for k in PHYS_KEYS) / len(PHYS_KEYS)
-            total = data_loss + phys_w * (phys_total / torch.clamp(mean_phys_w, min=1e-12))
-        return total, data_loss, phys_total, new_ema
+                # the ramp in [0, 1] gates the physics term as the other modes'
+                # warmup does; the magnitudes come from the learned eps
+                ramp = phys_w / max(cfg.physics_weight, 1e-12)
+                total = coupled_weighting_apply(self.model.loss_bal, data_loss,
+                                                phys_total * ramp, target_ratio=cfg.coupled_ratio)
+            elif cfg.physics_normalize == "balanced":
+                scale = new_ema["abs_data"] / torch.clamp(new_ema["abs_phys"], min=1e-30)
+                total = data_loss + phys_w * phys_total * scale.detach()
+            else:
+                mean_phys_w = sum(new_ema[k] for k in PHYS_KEYS) / len(PHYS_KEYS)
+                total = data_loss + phys_w * (phys_total / torch.clamp(mean_phys_w, min=1e-12))
+            return total, data_loss, phys_total, new_ema
 
     def step_fn(self, xb, yb, phys_w, lr) -> torch.Tensor:
         """One step on the batch (xb, yb) at physics weight ``phys_w`` and
         learning rate ``lr`` (tensors or floats): the parameters, the
         optimizer state and the EMA update in place. Returns [total, data,
-        phys], detached."""
-        total, data_loss, phys_total, new_ema = self.batch_loss(xb, yb, phys_w)
-        grads = torch.autograd.grad(total, self.params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(self.params, grads)]
-        if self.mesh is not None:
-            grads = self.mesh.mean_grads(grads)
-        updates, _ = self.optimizer.update(grads, self.opt_state, self.params)
-        with torch.no_grad():
-            torch._foreach_mul_(updates, lr)
-            optim.apply_updates(self.params, updates)
-            for k in EMA_KEYS:
-                self.ema[k].copy_(new_ema[k])
-        return torch.stack([total, data_loss, phys_total]).detach()
+        phys], detached. The span ``step``, tiled by ``data_forward``,
+        ``residual``, ``data_forward`` (:meth:`batch_loss`), ``backward``
+        (the gradient call, with the mesh's mean) and ``optimizer`` (the
+        clip, Adam, the update and the EMA copies)."""
+        with spans.span("step", xb):
+            total, data_loss, phys_total, new_ema = self.batch_loss(xb, yb, phys_w)
+            with spans.span("backward", xb):
+                grads = torch.autograd.grad(total, self.params, allow_unused=True)
+                grads = [torch.zeros_like(p) if g is None else g
+                         for p, g in zip(self.params, grads)]
+                if self.mesh is not None:
+                    grads = self.mesh.mean_grads(grads)
+            with spans.span("optimizer", xb):
+                updates, _ = self.optimizer.update(grads, self.opt_state, self.params)
+                with torch.no_grad():
+                    torch._foreach_mul_(updates, lr)
+                    optim.apply_updates(self.params, updates)
+                    for k in EMA_KEYS:
+                        self.ema[k].copy_(new_ema[k])
+                return torch.stack([total, data_loss, phys_total]).detach()
 
     def static_step(self) -> torch.Tensor:
         return self.step_fn(self.xb, self.yb, self.phys_w, self.lr)
@@ -314,16 +330,18 @@ class PretrainEpoch:
         self.phys_w.fill_(phys_w)
         self.lr.fill_(lr)
         b, nb = cfg.batch_size, self.n_batches
-        perm = torch.randperm(len(self.Xd), generator=generator,
-                              device=self.device)[: nb * b]
-        Xs, Ys = self.Xd[perm].reshape(nb, b, -1), self.Yd[perm].reshape(nb, b, -1)
-        trace = torch.empty((nb, 3), device=self.device)
+        with spans.host_span("shuffle"):
+            perm = torch.randperm(len(self.Xd), generator=generator,
+                                  device=self.device)[: nb * b]
+            Xs, Ys = self.Xd[perm].reshape(nb, b, -1), self.Yd[perm].reshape(nb, b, -1)
+            trace = torch.empty((nb, 3), device=self.device)
         for i in range(nb):
-            xb, yb = Xs[i], Ys[i]
-            if self.mesh is not None:
-                xb, yb = shard_batch(xb, self.mesh), shard_batch(yb, self.mesh)
-            self.xb.copy_(xb)
-            self.yb.copy_(yb)
+            with spans.host_span("feed"):
+                xb, yb = Xs[i], Ys[i]
+                if self.mesh is not None:
+                    xb, yb = shard_batch(xb, self.mesh), shard_batch(yb, self.mesh)
+                self.xb.copy_(xb)
+                self.yb.copy_(yb)
             trace[i].copy_((self._step or self.static_step)())
         m = trace.mean(0)
         return {"loss": m[0], "data": m[1], "phys": m[2], "phys_w": phys_w, "lr": lr}
@@ -361,7 +379,9 @@ def run_pretrain(
     are drawn anew from ``cfg.seed``. ``checkpoint_fn(params_tree, epoch,
     history)`` is called every ``save_every`` epochs. ``time_budget_s`` > 0
     stops after the epoch that crosses it (the caller saves the final
-    checkpoint as usual)."""
+    checkpoint as usual). With ``QCPINN_PROFILE_DIR`` set in the environment
+    the epochs run under ``torch.profiler`` with spans on, and the trace and
+    the spans' summary are written there (``loop.profile_trace``)."""
     log = _log_fn(logger)
     if params is None:
         model.init(cfg.seed)
@@ -388,22 +408,23 @@ def run_pretrain(
     history = []
     t0 = time.time()
     try:
-        for epoch in range(start_epoch + 1, cfg.epochs + 1):
-            metrics = epoch_fn(epoch, gen)
-            loss, data, phys = (float(v) for v in torch.stack(
-                [metrics["loss"], metrics["data"], metrics["phys"]]).tolist())
-            history.append(loss)
-            if epoch == 1 or epoch % cfg.log_every == 0 or epoch == cfg.epochs:
-                log(f"[PRETRAIN] epoch {epoch:04d}/{cfg.epochs} | "
-                    f"loss={loss:.4e} | data={data:.4e} | "
-                    f"phys={phys:.4e} | phys_w={metrics['phys_w']:.3e} | "
-                    f"lr={metrics['lr']:.2e} | elapsed={time.time()-t0:.1f}s")
-            if checkpoint_fn is not None and save_every and epoch % save_every == 0:
-                checkpoint_fn(_strip_balancer(params_to_jax(model)), epoch, history)
-            if time_budget_s > 0 and time.time() - t0 > time_budget_s:
-                log(f"[PRETRAIN] time budget {time_budget_s:.0f}s reached at "
-                    f"epoch {epoch}/{cfg.epochs} — stopping gracefully")
-                break
+        with profile_trace(os.environ.get("QCPINN_PROFILE_DIR"), model.device, log):
+            for epoch in range(start_epoch + 1, cfg.epochs + 1):
+                metrics = epoch_fn(epoch, gen)
+                loss, data, phys = (float(v) for v in torch.stack(
+                    [metrics["loss"], metrics["data"], metrics["phys"]]).tolist())
+                history.append(loss)
+                if epoch == 1 or epoch % cfg.log_every == 0 or epoch == cfg.epochs:
+                    log(f"[PRETRAIN] epoch {epoch:04d}/{cfg.epochs} | "
+                        f"loss={loss:.4e} | data={data:.4e} | "
+                        f"phys={phys:.4e} | phys_w={metrics['phys_w']:.3e} | "
+                        f"lr={metrics['lr']:.2e} | elapsed={time.time()-t0:.1f}s")
+                if checkpoint_fn is not None and save_every and epoch % save_every == 0:
+                    checkpoint_fn(_strip_balancer(params_to_jax(model)), epoch, history)
+                if time_budget_s > 0 and time.time() - t0 > time_budget_s:
+                    log(f"[PRETRAIN] time budget {time_budget_s:.0f}s reached at "
+                        f"epoch {epoch}/{cfg.epochs} — stopping gracefully")
+                    break
     finally:
         if hasattr(model, "loss_bal"):
             del model.loss_bal

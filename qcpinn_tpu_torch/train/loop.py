@@ -35,6 +35,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import inspect
+import json
 import os
 import time
 import weakref
@@ -47,6 +48,7 @@ from .. import resolve_device
 from ..bridge import params_from_jax
 from ..parallel.collectives import psum
 from ..parallel.mesh import replicate, shard_batch
+from ..utils import spans
 from . import losses as L
 from . import optim
 from .spsa import SPSAConfig, spsa_split_step, spsa_step, split_params
@@ -413,9 +415,19 @@ class CapturedStep:
     that fails raises.
 
     The kernels' launch counters (``LAUNCHES``) count in Python, so they see
-    the warm-up steps and the captured step, never a replay:
-    ``eager_steps`` and ``captured`` say how many steps they saw, and
-    ``replays`` how many steps ran without them.
+    the warm-up steps and the captured steps, never a replay:
+    ``eager_steps`` and ``captured`` (the captures) say how many steps they
+    saw, and ``replays`` how many steps ran without them. ``capture_s`` is
+    the host's seconds from the first warm-up to the end of the first
+    capture (the warm-ups' device work included: a capture begins by
+    synchronising).
+
+    Spans (``utils/spans.py``) are captured with the step: a graph holds
+    their marks only if spans were on at its capture. When that no longer
+    holds, the next call frees the graph and captures again (no new
+    warm-up: the kernels are built), so spans can be turned on in a running
+    process. With spans on, the warm-ups, the captures and the replays are
+    host spans (``qc::warmup``, ``qc::capture``, ``qc::replay``).
 
     A bound method ``step`` is held weakly: its object owns this
     CapturedStep (``PretrainEpoch``, ``FinetuneStep``, ``CrystalTrainer``),
@@ -437,7 +449,11 @@ class CapturedStep:
         self.eager_steps = 0
         self.captured = 0
         self.replays = 0
+        self.capture_s: Optional[float] = None
         self._side = None
+        self._t0: Optional[float] = None
+        self._spans = False  # spans were on at the graph's capture
+        self._layout: Optional[spans.Recording] = None  # the spans it recorded
 
     @property
     def step(self) -> Callable[[], torch.Tensor]:
@@ -447,24 +463,39 @@ class CapturedStep:
         return step
 
     def __call__(self) -> torch.Tensor:
+        if self.graph is not None and self._spans != spans.enabled():
+            self.graph = self.out = self._layout = None
         if self.graph is None:
+            if self._t0 is None:
+                self._t0 = time.perf_counter()
             if self.eager_steps < self.warmup:
                 if self._side is None:
                     self._side = torch.cuda.Stream()
-                self._side.wait_stream(torch.cuda.current_stream())
-                with torch.cuda.stream(self._side):
-                    out = self.step()
-                torch.cuda.current_stream().wait_stream(self._side)
+                with spans.host_span("warmup"):
+                    self._side.wait_stream(torch.cuda.current_stream())
+                    with torch.cuda.stream(self._side):
+                        out = self.step()
+                    torch.cuda.current_stream().wait_stream(self._side)
                 self.eager_steps += 1
                 return out
-            graph = torch.cuda.CUDAGraph()
-            if self.generator is not None:
-                graph.register_generator_state(self.generator)
-            with torch.cuda.graph(graph):
-                self.out = self.step()
+            with spans.host_span("capture"):
+                graph = torch.cuda.CUDAGraph()
+                if self.generator is not None:
+                    graph.register_generator_state(self.generator)
+                recorded = spans.generation()
+                with torch.cuda.graph(graph):
+                    self.out = self.step()
             self.graph = graph
-            self.captured = 1
-        self.graph.replay()
+            self._spans = spans.enabled()
+            if spans.generation() != recorded:
+                self._layout = spans.last()
+            self.captured += 1
+            if self.capture_s is None:
+                self.capture_s = time.perf_counter() - self._t0
+        if self._layout is not None:
+            spans.use(self._layout)
+        with spans.host_span("replay"):
+            self.graph.replay()
         self.replays += 1
         return self.out
 
@@ -636,11 +667,16 @@ def train_stage(
 
 @contextlib.contextmanager
 def profile_trace(profile_dir: Optional[str], device: torch.device, log=print):
-    """The ``QCPINN_PROFILE_DIR`` hook of ``train`` (the JAX package's
-    ``jax.profiler.start_trace``): with a directory, the body runs under
-    ``torch.profiler`` (host and, on the card, device activity) and a Chrome
-    trace, ``train-<pid>-<time>.pt.trace.json``, is written into it;
-    without one, the body runs as it is."""
+    """The ``QCPINN_PROFILE_DIR`` hook of ``train`` and ``cz_pipeline``'s
+    ``run_pretrain`` (the JAX package's ``jax.profiler.start_trace``): with a
+    directory, the body runs under ``torch.profiler`` (host and, on the
+    card, device activity) with spans on (``utils/spans.py``), and a Chrome
+    trace, ``train-<pid>-<time>.pt.trace.json``, is written into it; where
+    the body recorded spans, so is their summary,
+    ``spans-<pid>-<time>.json``: the last recorded step's spans by name
+    (device ms, self ms, rows, count) and its edges in order (the k-th
+    ``qc_span_mark`` of a step in the trace is the k-th edge). Without a
+    directory, the body runs as it is."""
     if not profile_dir:
         yield
         return
@@ -650,10 +686,14 @@ def profile_trace(profile_dir: Optional[str], device: torch.device, log=print):
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(profile_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    with spans.turned_on(), profile(activities=activities) as prof:
+        recorded = spans.generation()
         yield
-    prof.export_chrome_trace(os.path.join(
-        profile_dir, f"train-{os.getpid()}-{int(time.time())}.pt.trace.json"))
+    stem = f"{os.getpid()}-{int(time.time())}"
+    prof.export_chrome_trace(os.path.join(profile_dir, f"train-{stem}.pt.trace.json"))
+    if spans.generation() != recorded:
+        with open(os.path.join(profile_dir, f"spans-{stem}.json"), "w") as f:
+            json.dump({"spans": spans.read(), "edges": spans.layout()}, f, indent=1)
     log(f"profiler trace written to {profile_dir}")
 
 

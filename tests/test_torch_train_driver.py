@@ -351,6 +351,47 @@ def test_profile_hook_writes_a_trace(monkeypatch, tmp_path):
     assert not any("profiler" in line for line in log.lines)
 
 
+def test_profile_hook_of_cz_pretrain_writes_a_trace_and_its_spans(monkeypatch, tmp_path):
+    """``cz_pipeline.run_pretrain`` honours QCPINN_PROFILE_DIR as train()
+    does, with spans on for the epochs: the Chrome trace holds the qc:: host
+    and device spans, and the spans' summary of the last step (device ms,
+    self ms, rows, count, and the edges in order) is written beside it; the
+    spans are off again afterwards."""
+    import json as _json
+    import os
+
+    from qcpinn_tpu_torch.data.cz_loader import DataStats
+    from qcpinn_tpu_torch.models.czochralski import Hybrid16QPINN
+    from qcpinn_tpu_torch.train import cz_pipeline as czp
+    from qcpinn_tpu_torch.utils import spans
+
+    rng = np.random.default_rng(0)
+    X = rng.uniform(0.05, 1, (16, 2)).astype(np.float32)
+    Y = rng.uniform(-0.5, 0.5, (16, 5)).astype(np.float32)
+    stats = DataStats(length_scale=1.0, velocity_scale=1.0, pressure_scale=1.0,
+                      temp_min=0.0, temp_max=1.0, pressure_coeff=3.0)
+    cfg = czp.CzConfig(n_qubits=2, n_layers=1, epochs=1, batch_size=8, physics_warmup=0)
+    trace_dir = tmp_path / "trace"
+    monkeypatch.setenv("QCPINN_PROFILE_DIR", str(trace_dir))
+    log = _Log()
+    czp.run_pretrain(Hybrid16QPINN(2, 1, width=4, remat=False, device="cpu"), X, Y, stats,
+                     cfg, logger=log)
+    assert not spans.enabled()
+    summary_name, trace_name = sorted(os.listdir(trace_dir))
+    assert summary_name.startswith("spans-") and trace_name.startswith("train-")
+    with open(trace_dir / summary_name) as f:
+        summary = _json.load(f)
+    assert set(summary["spans"]) == {"step", "data_forward", "residual", "engine", "backward",
+                                     "engine.bwd", "optimizer"}
+    assert summary["spans"]["engine"]["count"] == 3
+    assert summary["spans"]["step"]["rows"] == 8 and summary["spans"]["step"]["ms"] > 0
+    assert summary["edges"][0] == ["step", "begin"] and summary["edges"][-1] == ["step", "end"]
+    with open(trace_dir / trace_name) as f:
+        names = {e.get("name") for e in _json.load(f)["traceEvents"]}
+    assert {"qc::shuffle", "qc::feed", "qc::step", "qc::engine.bwd"} <= names
+    assert log.lines[-1] == f"profiler trace written to {trace_dir}"
+
+
 def test_captured_step_holds_its_owner_weakly():
     """A CapturedStep built on its owner's method (PretrainEpoch,
     FinetuneStep, CrystalTrainer) makes no reference cycle: the owner, and
