@@ -2143,7 +2143,8 @@ class _Stepper:
 
 
 def cz_pretrain(dev):
-    """The pretrain step at the wide384_400 record's command: the graphed
+    """The pretrain step at the wide384_400 record's command (its residual
+    path, ``PretrainEpoch.residual_path``): the graphed
     step against the eager one, CZ_STEPS steps on the same batches (losses,
     parameters and the EMA state bit-equal); ms a step eager (after its
     first step) and graphed, a 3-step profile of the graphed step
@@ -2195,7 +2196,8 @@ def cz_pretrain(dev):
     bit_equal = (torch.equal(l_got, l_ref)
                  and all(torch.equal(p, want[k]) for k, p in got_model.named_parameters())
                  and all(torch.equal(got.ema[k], ref.ema[k]) for k in ref.ema))
-    row.update({"parity_steps": CZ_STEPS, "bit_equal": bit_equal,
+    row.update({"residual_path": got.residual_path, "parity_steps": CZ_STEPS,
+                "bit_equal": bit_equal,
                 "loss_first": float(l_got[0, 0]), "loss_last": float(l_got[-1, 0]),
                 "data_last": float(l_got[-1, 1]), "phys_last": float(l_got[-1, 2]),
                 "eager_steps": got.captured.eager_steps, "captured": got.captured.captured})

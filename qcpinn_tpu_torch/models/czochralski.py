@@ -20,6 +20,11 @@ applied by one complex matmul over the state; the data reupload is one
 diagonal phase with per-sample angles; the CZ brickwork one static phase
 vector. No kernel of the package is on this path (JAX leaves it to XLA's
 matmuls and elementwise ops): plain torch, TF32 off.
+
+``Hybrid16QPINN.jet`` carries the prediction with its first and second
+derivatives along r and z through one pass, the circuit as a jet of five
+states (``CzQuantumLayer.apply(..., tangents=)``): the Cz residual's
+derivatives with no nested ``torch.func.jvp``.
 """
 
 from __future__ import annotations
@@ -93,6 +98,82 @@ def _wire_groups(n: int, k: int = 4):
     return [(w, min(k, n - w)) for w in range(0, n, k)]
 
 
+@functools.lru_cache(maxsize=32)
+def _z_sign_pairs(n: int, device: torch.device) -> torch.Tensor:
+    """``sv.z_sign``'s rows, each twice: ``[2^(n+1), n]``, against a state's
+    ``torch.view_as_real`` pairs (real and imaginary part of an
+    amplitude)."""
+    with gates.untransformed():
+        return torch.repeat_interleave(sv.z_sign(n, device), 2, dim=0)
+
+
+# -- the circuit as a second-order forward jet -----------------------------------
+# A state jet is one tensor [1 + 2m, B, 2^n]: the state, its first derivative
+# along each of m directions, then its second along each of them (the
+# layout of nn_core's jets, the primal in front).
+
+
+def _jet_product(a: torch.Tensor, b: torch.Tensor, m: int) -> torch.Tensor:
+    """The jet of the product ``a b`` (broadcasting) from its factors' jets:
+    ``(ab)_k = a_k b + a b_k``, ``(ab)_kk = a_kk b + 2 a_k b_k + a b_kk``."""
+    out = a * b[:1]
+    out[1:] += a[:1] * b[1:]
+    out[1 + m:] += 2.0 * a[1:1 + m] * b[1:1 + m]
+    return out
+
+
+def _encode_jet(a: torch.Tensor, m: int) -> torch.Tensor:
+    """The RY encode of |0...0> as a jet, from the angles' jet ``a [1 + 2m,
+    B, n]``: the product over wires (wire 0 the most significant bit) of
+    ``v = (cos(a/2), sin(a/2))``, whose ``v_k = a_k v'`` and ``v_kk = a_kk
+    v' - a_k^2 v / 4``, ``v' = (-sin(a/2), cos(a/2)) / 2``. Real ``[1 + 2m,
+    B, 2^n]``: the krons run as a balanced tree, so the full width is
+    formed once."""
+    h = 0.5 * a[0]
+    cos, sin = torch.cos(h), torch.sin(h)
+    v = torch.stack([cos, sin], dim=-1)
+    dv = 0.5 * torch.stack([-sin, cos], dim=-1)
+    a1, a2 = a[1:1 + m, ..., None], a[1 + m:, ..., None]
+    wires = torch.cat([v[None], a1 * dv, a2 * dv - 0.25 * a1 * a1 * v])  # [1 + 2m, B, n, 2]
+
+    def kron(lo, hi):
+        if hi - lo == 1:
+            return wires[:, :, lo]
+        mid = (lo + hi) // 2
+        left, right = kron(lo, mid), kron(mid, hi)
+        return _jet_product(left[..., :, None], right[..., None, :], m).flatten(2)
+
+    return kron(0, a.shape[2])
+
+
+def _phase_jet(s: torch.Tensor, phi: torch.Tensor, m: int) -> torch.Tensor:
+    """The jet of ``s exp(i phi)`` from the state's jet and the real
+    phase's (``[1 + 2m, B, 2^n]`` each). With ``t = s exp(i phi)`` channel by
+    channel: ``out_k = t_k + i phi_k t``, ``out_kk = t_kk + i phi_kk t + i
+    phi_k (t_k + out_k)``."""
+    t = s * torch.exp(1j * phi[0])
+    g = phi[1:] * (1j * t[0])
+    first = t[1:1 + m] + g[:m]
+    second = t[1 + m:] + g[m:] + phi[1:1 + m] * (1j * (t[1:1 + m] + first))
+    return torch.cat([t[:1], first, second])
+
+
+def _z_jet(state: torch.Tensor, n: int, m: int):
+    """``<Z_w>`` ``[B, n]`` and its tangents ``[2m, B, n]`` from a state's
+    jet: ``z = |psi|^2 . zs``, ``z_k = 2 Re(conj(psi) psi_k) . zs``, ``z_kk =
+    (2 Re(conj(psi) psi_kk) + 2 |psi_k|^2) . zs``. Each ``Re(conj(a) b)`` is
+    the product of ``a``'s and ``b``'s real pairs, summed by the product
+    with ``zs``'s doubled rows: no ``conj``."""
+    if not state.is_complex():  # the encode alone, with no layer
+        state = state.to(sv.CDTYPE)
+    c, b = state.shape[:2]
+    r = torch.view_as_real(state).reshape(c, b, -1)
+    zs = _z_sign_pairs(n, state.device)
+    p = (r[:1] * r) @ zs
+    q = (r[1:1 + m] * r[1:1 + m]) @ zs
+    return p[0], 2.0 * torch.cat([p[1:1 + m], p[1 + m:] + q])
+
+
 def _under_transform() -> bool:
     """True inside a ``torch.func`` transform (jvp, vmap, grad)."""
     return torch._C._functorch.maybe_current_level() is not None
@@ -105,12 +186,24 @@ class CzQuantumLayer:
     ``remat`` runs the encoding and each reupload layer as its own
     ``torch.utils.checkpoint`` segment (non-reentrant), where JAX wraps each
     in ``jax.checkpoint``: reverse mode then holds one segment's per-gate
-    ``[B, 2^n]`` intermediates at a time. ``torch.utils.checkpoint`` does
-    not compose with ``torch.func.jvp`` (the recomputation runs outside the
-    jvp levels and saves other tensors), so inside a ``torch.func``
-    transform the segments run unwrapped; the pipeline bounds the
-    forward-mode residual's memory by running it in chunks of rows instead
-    (``train/cz_pipeline.py``)."""
+    ``[B, 2^n]`` intermediates at a time, the jet's ``[5, B, 2^n]`` ones too.
+    ``torch.utils.checkpoint`` does not compose with ``torch.func.jvp`` (the
+    recomputation runs outside the jvp levels and saves other tensors), so
+    inside a ``torch.func`` transform the segments run unwrapped; the
+    pipeline runs the nested-jvp residual in chunks of rows instead
+    (``train/cz_pipeline.py``).
+
+    The last layer's RZ(omega) of each wire meets only the diagonal CZ
+    brickwork and the Z readout after it. So no readout depends on it
+    (exact, sampled or noisy: each reads ``|psi|^2`` or a per-wire scale of
+    it), nor any derivative of one: its exact gradient is 0. Rounding gives
+    it noise instead (about 1e-8 of the 16q pretrain step's clipped
+    gradient), which Adam's epsilon turns into steps of a few tenths of the
+    learning rate. The jet (``tangents``, the pretrain residual's path)
+    takes no gradient through it. A call without tangents keeps the
+    gradient that rounding gives it, as the JAX package does, in every path
+    (the data forward, finetune, eval, parameter-shift, the nested-jvp and
+    reverse residuals, amp sharding)."""
 
     def __init__(self, n_qubits: int = 16, n_layers: int = 2, remat: bool = False):
         self.n = n_qubits
@@ -172,11 +265,24 @@ class CzQuantumLayer:
         noise: Optional[measure.NoiseModel] = None,
         enc_off: Optional[torch.Tensor] = None,
         reup_off: Optional[torch.Tensor] = None,
-    ) -> torch.Tensor:
+        tangents: Optional[torch.Tensor] = None,
+    ):
         """``<Z_w>`` ``[B, n]`` of the circuit on angles ``x [B, n]``.
         ``enc_off [n]`` / ``reup_off [layers, n]`` add to the RY-encoding
         angles / the per-wire reupload RZ angles: the per-occurrence shifts
-        of the parameter-shift input gradient (train/hardware_grad.py)."""
+        of the parameter-shift input gradient (train/hardware_grad.py).
+
+        ``tangents [2m, B, n]``, the angles' first derivatives along m
+        directions and then their second along each (``nn_core``'s jet
+        layout), makes the call the circuit's second-order forward jet:
+        returns (``<Z_w>``, its tangents ``[2m, B, n]``), every gate applied
+        to the ``1 + 2m`` channels of the state at once. Exact readout of the
+        whole state only: no shots, noise, shifts or amp sharding."""
+        if tangents is not None:
+            if any(v is not None for v in (shots, noise, enc_off, reup_off, self.sharded)):
+                raise ValueError("the circuit's jet takes the exact readout of the whole "
+                                 "state: no shots, noise, shifts or amp sharding")
+            return self._jet(weights, x, tangents)
         n = self.n
         if noise is not None:
             noise = noise.bind(self)
@@ -229,6 +335,36 @@ class CzQuantumLayer:
             return measure.exact_z(state, n, noise)
         measure.check_key(shots, key)
         return measure.sampled_z(state, n, shots, key, noise)
+
+    def _jet(self, weights: torch.Tensor, x: torch.Tensor, tangents: torch.Tensor):
+        """``apply``'s jet (see there). The encode is the product state of
+        the wires' RY jets; a reupload phase depends on x, so its jet mixes
+        the channels (``_phase_jet``); the Rot groups and the brickwork
+        depend on the weights alone and act on every channel as a batch of
+        ``(1 + 2m) B`` states. The last layer's RZ(omega) is cut from
+        autograd (see the class)."""
+        n, m = self.n, tangents.shape[0] // 2
+        bits, brick = _constants(n, x.device)
+        groups = _wire_groups(n)
+        xj = torch.cat([x[None], tangents])
+
+        def one_layer(st, xj, wl, layer):
+            theta = 0.5 * torch.roll(xj, -layer, dims=2)
+            phi = theta @ bits.T - 0.5 * torch.sum(theta, dim=2, keepdim=True)
+            st = _phase_jet(st, phi, m)
+            c, b = st.shape[:2]
+            st = st.reshape(c * b, 1 << n)
+            omega = wl[:, 2].detach() if layer == self.layers - 1 else wl[:, 2]
+            for w0, k in groups:
+                st = _apply_wire_group(st, n, w0, _kron_chain(
+                    [gates.rot(wl[i, 0], wl[i, 1], omega[i]) for i in range(w0, w0 + k)]))
+            return (st * brick[None, :]).reshape(c, b, 1 << n)
+
+        state = self._segment(functools.partial(_encode_jet, m=m), xj)
+        for layer in range(self.layers):
+            state = self._segment(functools.partial(one_layer, layer=layer),
+                                  state, xj, weights[layer])
+        return _z_jet(state, n, m)
 
 
 class Hybrid16QPINN(nn.Module):
@@ -312,28 +448,39 @@ class Hybrid16QPINN(nn.Module):
         pass is the span ``engine.bwd``, marked at its output and at its
         input: ``q_in`` where it reports a gradient, else the weights (a
         tensor inside ``torch.func.jvp`` reports none)."""
+        h = self.encode(x)
+        q_in = math.pi * torch.tanh(nc.mlp_apply(self.to_quantum, h))
+        if q_apply is not None:
+            q_out = self._engine(q_in, lambda w, q: q_apply(w, q, key))
+        else:
+            q_out = self._engine(q_in, lambda w, q: self.qlayer.apply(
+                w, q, shots=shots, key=key, noise=noise))
+        if detach_quantum:
+            q_out = q_out.detach()
+        c_skip = torch.tanh(nc.mlp_apply(self.classical_skip, h))
+        q_normed = nc.layernorm_apply(self.q_norm, q_out)
+        return torch.cat([c_skip, q_normed, x], dim=-1)
+
+    def _engine(self, q_in: torch.Tensor, call):
+        """``call(weights, q_in)``, the circuit, as the span ``engine``; its
+        reverse pass the span ``engine.bwd``, marked at the output (the
+        primal ``<Z>`` of a jet) and at the input: ``q_in`` where it reports
+        a gradient, else the weights (a tensor inside ``torch.func.jvp``
+        reports none)."""
         # imported here: the utils package imports the train package, which
         # imports this module
         from ..utils import spans
 
-        h = self.encode(x)
-        q_in = math.pi * torch.tanh(nc.mlp_apply(self.to_quantum, h))
         weights = self.q
         if q_in.requires_grad:
             q_in = spans.reverse_end("engine.bwd", q_in)
         else:
             weights = spans.reverse_end("engine.bwd", weights)
         with spans.span("engine", q_in):
-            if q_apply is not None:
-                q_out = q_apply(weights, q_in, key)
-            else:
-                q_out = self.qlayer.apply(weights, q_in, shots=shots, key=key, noise=noise)
-        q_out = spans.reverse_begin("engine.bwd", q_out)
-        if detach_quantum:
-            q_out = q_out.detach()
-        c_skip = torch.tanh(nc.mlp_apply(self.classical_skip, h))
-        q_normed = nc.layernorm_apply(self.q_norm, q_out)
-        return torch.cat([c_skip, q_normed, x], dim=-1)
+            out = call(weights, q_in)
+        if isinstance(out, tuple):
+            return (spans.reverse_begin("engine.bwd", out[0]),) + out[1:]
+        return spans.reverse_begin("engine.bwd", out)
 
     def forward(self, x: torch.Tensor, **kw) -> torch.Tensor:
         raw = nc.mlp_apply(self.post, self.quantum_features(x, **kw))
@@ -341,6 +488,48 @@ class Hybrid16QPINN(nn.Module):
         r = x[:, 0:1]
         return torch.cat([r * raw[:, 0:1], raw[:, 1:2], r * raw[:, 2:3], raw[:, 3:4],
                           raw[:, 4:5]], dim=1)
+
+    def jet(self, x: torch.Tensor):
+        """``forward`` with its first derivative along each input column
+        and its second along each, in one pass (``nn_core``'s jets, the
+        circuit's through ``CzQuantumLayer.apply(tangents=)``, the span
+        ``engine`` and its marks as in :meth:`quantum_features`): (out [B,
+        5], tangents [4, B, 5]: d/dr, d/dz, d2/dr2, d2/dz2)."""
+        cols2 = range(2)
+        ff, t_ff = nc.fourier_features_jet(self.B, x, cols2)
+        h = torch.cat([x, ff], dim=-1)
+        th = torch.cat([nc.input_jet(x, cols2), t_ff], dim=-1)
+        for layer in self.coord_proj:
+            h, th = nc.tanh_jet(*nc.linear_jet(layer, h, th), cols2)
+        for block in (self.res1, self.res2):
+            a, ta = nc.tanh_jet(*nc.linear_jet(block[0], h, th), cols2)
+            b, tb = nc.linear_jet(block[1], a, ta)
+            h, th = nc.tanh_jet(h + b, th + tb, cols2)
+        a, ta = nc.tanh_jet(*nc.linear_jet(self.to_quantum[0], h, th), cols2)
+        q_in, t_in = nc.tanh_jet(*nc.linear_jet(self.to_quantum[1], a, ta), cols2)
+        t_in = math.pi * t_in
+        z, tz = self._engine(math.pi * q_in,
+                             lambda w, q: self.qlayer.apply(w, q, tangents=t_in))
+        skip, t_skip = nc.tanh_jet(*nc.linear_jet(self.classical_skip[0], h, th), cols2)
+        zn, t_zn = nc.layernorm_jet(self.q_norm, z, tz, cols2)
+        h = torch.cat([skip, zn, x], dim=-1)
+        th = torch.cat([t_skip, t_zn, nc.input_jet(x, cols2)], dim=-1)
+        for layer in self.post[:-1]:
+            h, th = nc.tanh_jet(*nc.linear_jet(layer, h, th), cols2)
+        raw, t_raw = nc.linear_jet(self.post[-1], h, th)
+        # hard axis constraints, r * raw for u_r and u_theta: r's only
+        # tangent is 1 along r, so (r raw)_r = raw + r raw_r and
+        # (r raw)_rr = 2 raw_r + r raw_rr
+        r = x[:, 0:1]
+
+        def by_r(v, tv):
+            zero = torch.zeros_like(v)[None]
+            return r * v, r * tv + torch.cat([v[None], zero, 2.0 * tv[:1], zero])
+
+        u_r, t_ur = by_r(raw[:, 0:1], t_raw[..., 0:1])
+        u_t, t_ut = by_r(raw[:, 2:3], t_raw[..., 2:3])
+        return (torch.cat([u_r, raw[:, 1:2], u_t, raw[:, 3:]], dim=1),
+                torch.cat([t_ur, t_raw[..., 1:2], t_ut, t_raw[..., 3:]], dim=-1))
 
     def use_sharded(self, mesh, amp_axis: str = "amp",
                     data_axis: str = "data") -> "Hybrid16QPINN":

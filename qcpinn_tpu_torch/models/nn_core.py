@@ -190,6 +190,30 @@ def tanh_jet(a: torch.Tensor, ta: torch.Tensor, cols2: range):
     return y, torch.cat([t1, t2])
 
 
+def layernorm_jet(params, x: torch.Tensor, tx: torch.Tensor, cols2: range,
+                  eps: float = 1e-5):
+    """``layernorm_apply`` of a jet. With ``d = x - mean(x)``, ``v`` its
+    biased variance and ``s = (v + eps)^(-1/2)``: ``d' = x' - mean(x')``,
+    ``v' = 2 mean(d d')``, ``v'' = 2 mean(d'^2 + d d'')``, ``s' = -s^3 v' /
+    2``, ``s'' = 3 s^5 v'^2 / 4 - s^3 v'' / 2`` and ``(d s)'' = d'' s + 2 d'
+    s' + d s''``."""
+    n1 = tx.shape[0] - len(cols2)
+    lo, hi = cols2.start, cols2.stop
+    d = x - torch.mean(x, dim=-1, keepdim=True)
+    td = tx - torch.mean(tx, dim=-1, keepdim=True)
+    v = torch.var(x, dim=-1, keepdim=True, correction=0)
+    v1 = 2.0 * torch.mean(d * td[:n1], dim=-1, keepdim=True)
+    v2 = 2.0 * torch.mean(td[lo:hi] ** 2 + d * td[n1:], dim=-1, keepdim=True)
+    s = torch.rsqrt(v + eps)
+    s3 = s ** 3
+    s1 = -0.5 * s3 * v1
+    s2 = 0.75 * s3 * s * s * v1[lo:hi] ** 2 - 0.5 * s3 * v2
+    t1 = td[:n1] * s + d * s1
+    t2 = td[n1:] * s + 2.0 * td[lo:hi] * s1[lo:hi] + d * s2
+    g = params["gamma"]
+    return g * d * s + params["beta"], g * torch.cat([t1, t2])
+
+
 def fourier_features_jet(B: torch.Tensor, x: torch.Tensor, cols2: range):
     """``fourier_features_apply`` of the input's jet. ``p = 2 pi x B`` has
     the constant row ``2 pi B[c]`` as its tangent along column c and

@@ -1,6 +1,7 @@
 """PDE residuals of the PyTorch port."""
 
 from .cylindrical import cz_residuals
+from .jet import cz_residuals_jet
 from .operators import (
     diffusion_operator,
     helmholtz_operator,
@@ -30,6 +31,7 @@ __all__ = [
     "wave_operator_fwd",
     "cz_residuals",
     "cz_residuals_fwd",
+    "cz_residuals_jet",
     "get_operator",
 ]
 

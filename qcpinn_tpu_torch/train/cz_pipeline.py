@@ -43,6 +43,7 @@ from ..models.czochralski import Hybrid16QPINN
 from ..parallel.collectives import psum
 from ..parallel.mesh import replicate, shard_batch
 from ..physics.cylindrical import cz_residuals
+from ..physics.jet import cz_residuals_jet
 from ..physics.operators_fwd import cz_residuals_fwd
 from ..utils import spans
 from . import optim
@@ -50,9 +51,11 @@ from .loop import CapturedStep, profile_trace
 
 PHYS_KEYS = ("cont", "mom_r", "mom_z", "swirl", "energy")
 EMA_KEYS = ("data",) + PHYS_KEYS + ("abs_data", "abs_phys")
-# rows a chunk of the forward-mode residual when remat is on (see
+# rows a chunk of the nested-jvp residual when remat is on (see
 # PretrainEpoch)
 REMAT_ROWS = 256
+# PretrainEpoch.residual_path by residual function
+RESIDUAL_PATHS = {cz_residuals_jet: "jet", cz_residuals_fwd: "jvp", cz_residuals: "rev"}
 
 
 @dataclasses.dataclass
@@ -85,8 +88,9 @@ class CzConfig:
     noise_readout: float = 0.0
     # depth-aware per-gate depolarizing (ops/measure.py)
     noise_per_gate: float = 0.0
-    # 'fwd' = forward-mode residuals (nested jvps; the model is
-    # point-decoupled); 'rev' = reverse mode
+    # 'fwd' = forward-mode residuals (the model's second-order jet, or
+    # nested jvps on an amp-sharded circuit; the model is point-decoupled);
+    # 'rev' = reverse mode
     physics_mode: str = "fwd"
     # Physics-vs-data balancing (the JAX CzConfig's comment has the record):
     #   'reference' - each term's EMA of its ratio to the all-term average
@@ -156,16 +160,22 @@ class PretrainEpoch:
     on the card through one captured CUDA graph, the plain version being
     ``step_fn``.
 
-    With ``physics_weight == 0`` the residual is never built (the static
-    data-only mode). With ``effective_remat`` the circuit's reverse pass
-    runs in checkpointed segments, but ``torch.utils.checkpoint`` does not
-    compose with the forward-mode residual's nested ``torch.func.jvp``: so
-    there the residual and its gradient are taken in chunks of
-    ``REMAT_ROWS`` rows, each chunk's graph freed once its gradient is
-    summed, and the loss sees the sum through a linear stand-in whose value
-    is the residual and whose gradient is the chunks' sum. The gradient is
-    the same (each residual term is a mean over rows, the model
-    point-decoupled); the peak memory is one chunk's.
+    The forward-mode residual (``physics_mode`` "fwd") is the model's
+    second-order jet (``physics/jet.py::cz_residuals_jet``: one pass, five
+    states through the circuit) where its circuit holds the whole state; on
+    an amp-sharded circuit it is the nested jvps (``cz_residuals_fwd``).
+    ``residual_path`` names the path: "jet", "jvp", "rev" or "none" (data
+    only). With ``physics_weight == 0`` the residual is never built (the
+    static data-only mode). With ``effective_remat`` the circuit's reverse
+    pass runs in checkpointed segments, the jet's too.
+    ``torch.utils.checkpoint`` does not compose with the nested
+    ``torch.func.jvp``, so on the path "jvp" the residual and its gradient
+    are taken in chunks of ``REMAT_ROWS`` rows instead, each chunk's graph
+    freed once its gradient is summed, and the loss sees
+    the sum through a linear stand-in whose value is the residual and whose
+    gradient is the chunks' sum. The gradient is the same (each residual
+    term is a mean over rows, the model point-decoupled); the peak memory
+    is one chunk's.
 
     ``mesh`` (``parallel.make_mesh``) makes the step data-parallel, as
     ``train/loop.py``'s: every rank shuffles alike, keeps its rows of each
@@ -200,11 +210,14 @@ class PretrainEpoch:
         self.optimizer = optim.make_optimizer(1.0, grad_clip=1.0, schedule="none")
         self.opt_state = self.optimizer.init(self.params)
         self.ema = {k: torch.ones((), device=dev) for k in EMA_KEYS}
-        self.residual_fn = cz_residuals if cfg.physics_mode == "rev" else cz_residuals_fwd
+        if cfg.physics_mode == "rev":
+            self.residual_fn = cz_residuals
+        elif model.qlayer.sharded is None:
+            self.residual_fn = cz_residuals_jet
+        else:
+            self.residual_fn = cz_residuals_fwd
         self.fw = cfg.norm_field_weights(dev)
         self.data_only = cfg.physics_weight == 0.0
-        self.chunk_rows = (REMAT_ROWS if cfg.effective_remat and cfg.physics_mode != "rev"
-                           and b > REMAT_ROWS else None)
         self.xb = torch.zeros((b, self.Xd.shape[1]), device=dev)
         self.yb = torch.zeros((b, self.Yd.shape[1]), device=dev)
         self.phys_w = torch.zeros((), device=dev)
@@ -213,6 +226,20 @@ class PretrainEpoch:
         # the step a batch runs, None for static_step (no reference to a
         # bound method of self: the epoch goes with its last reference)
         self._step = self.captured
+
+    @property
+    def residual_path(self) -> str:
+        """The residual's path: "jet", "jvp", "rev", or "none" where the
+        step is data only."""
+        return "none" if self.data_only else RESIDUAL_PATHS[self.residual_fn]
+
+    @property
+    def chunk_rows(self) -> Optional[int]:
+        """Rows a chunk of the residual: ``REMAT_ROWS`` under remat on the
+        nested jvps (path "jvp") where a batch holds more, else None."""
+        b = self.xb.shape[0]
+        return (REMAT_ROWS if self.cfg.effective_remat and self.residual_path == "jvp"
+                and b > REMAT_ROWS else None)
 
     def residual(self, xb: torch.Tensor):
         s, cfg = self.stats, self.cfg
@@ -400,9 +427,11 @@ def run_pretrain(
         log(f"coupled adaptive weighting on (trainable eps_data, "
             f"ratio {cfg.coupled_ratio}; modified_qpinn_cg.py:142-156)")
     epoch_fn = make_pretrain_epoch(model, X, Y, stats, cfg, mesh=mesh)
-    if epoch_fn.chunk_rows is not None:
-        log(f"remat: circuit segments checkpointed in reverse mode; the "
-            f"forward-mode residual runs in chunks of {REMAT_ROWS} rows")
+    log(f"residual path: {epoch_fn.residual_path}")
+    if cfg.effective_remat:
+        log("remat: circuit segments checkpointed in reverse mode" + (
+            "" if epoch_fn.chunk_rows is None else
+            f"; the nested-jvp residual runs in chunks of {REMAT_ROWS} rows"))
     gen = torch.Generator(device=model.device).manual_seed(cfg.seed)
 
     history = []

@@ -1,5 +1,6 @@
 """The port's Czochralski residuals (physics/cylindrical.py, reverse mode;
-physics/operators_fwd.py::cz_residuals_fwd, nested jvps) and the circuit's
+physics/operators_fwd.py::cz_residuals_fwd, nested jvps;
+physics/jet.py::cz_residuals_jet, the model's forward jet) and the circuit's
 parameter-shift estimator (train/hardware_grad.py::make_hw_apply_cz)
 against the JAX package's and against each other."""
 
@@ -19,6 +20,7 @@ from qcpinn_tpu_torch.bridge import params_from_jax
 from qcpinn_tpu_torch.models import czochralski as tcz
 from qcpinn_tpu_torch.ops import NoiseModel
 from qcpinn_tpu_torch.physics.cylindrical import cz_residuals
+from qcpinn_tpu_torch.physics.jet import cz_residuals_jet
 from qcpinn_tpu_torch.physics.operators_fwd import cz_residuals_fwd
 from qcpinn_tpu_torch.train.hardware_grad import evals_per_step_cz, make_hw_apply_cz
 
@@ -43,12 +45,13 @@ def models():
     return tm, x, jax_res
 
 
-@pytest.mark.parametrize("mode", ["rev", "fwd"])
+@pytest.mark.parametrize("mode", ["rev", "fwd", "jet"])
 def test_residuals_match_jax(models, mode):
-    """Each term and the total against JAX's of the same mode and of the
-    other, rtol 5e-3 / atol 1e-5 (tests/test_operators_fwd.py:73-85)."""
+    """Each term and the total against JAX's of both modes (the jet against
+    JAX's nested jvps as well as its reverse mode), rtol 5e-3 / atol 1e-5
+    (tests/test_operators_fwd.py:73-85)."""
     tm, x, jax_res = models
-    fn = cz_residuals if mode == "rev" else cz_residuals_fwd
+    fn = {"rev": cz_residuals, "fwd": cz_residuals_fwd, "jet": cz_residuals_jet}[mode]
     total, terms = fn(tm, torch.tensor(x), *ARGS)
     for jtotal, jterms in jax_res:
         assert set(terms) == set(jterms)

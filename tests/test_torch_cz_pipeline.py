@@ -248,9 +248,14 @@ def test_warm_start_and_fresh_init():
         assert torch.equal(a, b), k
 
 
-def test_chunked_residual_under_remat_gives_the_same_step(monkeypatch):
-    """remat with the forward-mode residual: the residual and its gradient
-    in chunks of rows give the step of the whole batch."""
+@pytest.mark.parametrize("path", ["jvp", "jet"])
+def test_chunked_residual_under_remat_gives_the_same_step(monkeypatch, path):
+    """remat with the forward-mode residual gives the step of the whole
+    batch: on the nested jvps (forced) the residual and its gradient in
+    chunks of rows; on the jet, in one piece through the circuit's
+    checkpointed segments."""
+    from qcpinn_tpu_torch.physics.operators_fwd import cz_residuals_fwd
+
     monkeypatch.setattr(tp, "REMAT_ROWS", 3)
     X, Y = _data(8)
     base = dict(n_qubits=2, n_layers=1, batch_size=8, physics_warmup=0, physics_ramp=1,
@@ -259,7 +264,10 @@ def test_chunked_residual_under_remat_gives_the_same_step(monkeypatch):
     for remat in (False, True):
         m = _model(seed=2)
         ep = tp.make_pretrain_epoch(m, X, Y, DataStats(**STATS), tp.CzConfig(**base, remat=remat))
-        assert (ep.chunk_rows is not None) == remat
+        if path == "jvp":
+            ep.residual_fn = cz_residuals_fwd
+        assert ep.residual_path == path
+        assert (ep.chunk_rows is not None) == (remat and path == "jvp")
         outs.append(ep.step_fn(torch.tensor(X), torch.tensor(Y), 0.05, 1e-3))
         models.append(m)
     torch.testing.assert_close(outs[1], outs[0], rtol=1e-5, atol=0)

@@ -10,6 +10,7 @@ import torch
 
 from qcpinn_tpu_torch.data.cz_loader import DataStats
 from qcpinn_tpu_torch.models.czochralski import Hybrid16QPINN
+from qcpinn_tpu_torch.physics.operators_fwd import cz_residuals_fwd
 from qcpinn_tpu_torch.train import cz_pipeline as czp
 from qcpinn_tpu_torch.utils import spans
 
@@ -25,7 +26,9 @@ def _data(rows=4 * B, seed=0):
             rng.uniform(-0.5, 0.5, (rows, 5)).astype(np.float32))
 
 
-def _epoch():
+def _epoch(path="jet"):
+    """The step on the residual path ``path``: the model's jet (the
+    pipeline's choice) or the nested jvps, forced."""
     X, Y = _data()
     model = Hybrid16QPINN(4, 2, width=8, remat=False, seed=3, device="cpu")
     cfg = czp.CzConfig(n_qubits=4, n_layers=2, batch_size=B, physics_weight=0.05,
@@ -33,6 +36,10 @@ def _epoch():
     pe = czp.make_pretrain_epoch(model, X, Y, STATS, cfg)
     pe.phys_w.fill_(0.05)
     pe.lr.fill_(1e-3)
+    assert pe.residual_path == "jet"
+    if path == "jvp":
+        pe.residual_fn = cz_residuals_fwd
+    assert pe.residual_path == path
     return model, pe
 
 
@@ -135,30 +142,40 @@ def test_edges_nest_and_the_phases_tile_the_step(spans_on):
         assert names.count(spans.PREFIX + name) == got[name]["count"]
 
 
-def test_the_engine_runs_three_times_two_inside_the_residual(spans_on):
-    model, pe = _epoch()
+# engine calls a step by residual path: the data forward's, then the
+# residual's (the jet's one, or one in each jvp-over-jvp trace)
+ENGINE_CALLS = {"jet": 2, "jvp": 3}
+
+
+@pytest.mark.parametrize("path", ["jet", "jvp"])
+def test_the_engine_runs_three_times_two_inside_the_residual(spans_on, path):
+    """Three times on the nested jvps, two inside the residual; twice on the
+    jet, once inside it."""
+    model, pe = _epoch(path)
     _feed(pe, 0)
     pe.static_step()
     rec = spans.last()
+    calls = ENGINE_CALLS[path]
     parents = [rec.edges[e[2]][0] for e in rec.edges if e[1] and e[0] == "engine"]
-    assert parents == ["data_forward", "residual", "residual"]
+    assert parents == ["data_forward"] + ["residual"] * (calls - 1)
     bwd = [rec.edges[e[2]][0] for e in rec.edges if e[1] and e[0] == "engine.bwd"]
-    assert bwd == ["backward"] * 3
+    assert bwd == ["backward"] * calls
     got = spans.read()
-    assert got["engine"]["rows"] == got["engine.bwd"]["rows"] == 3 * B
+    assert got["engine"]["rows"] == got["engine.bwd"]["rows"] == calls * B
     assert got["engine.bwd"]["ms"] < got["backward"]["ms"]
 
 
-def test_engine_bwd_brackets_every_node_made_inside_the_engine_call(spans_on):
+@pytest.mark.parametrize("path", ["jet", "jvp"])
+def test_engine_bwd_brackets_every_node_made_inside_the_engine_call(spans_on, path):
     """Every backward node created inside an engine call (its primal and the
-    nested jvps' tangent streams) runs between that call's pair of marks,
-    and nothing else runs there."""
-    model, pe = _epoch()
+    jet's channels, or the nested jvps' tangent streams) runs between that
+    call's pair of marks, and nothing else runs there."""
+    model, pe = _epoch(path)
     _feed(pe, 0)
     total = pe.batch_loss(pe.xb, pe.yb, pe.phys_w)[0]
     nodes = [fn for fn in _graph_nodes(total.grad_fn) if fn._sequence_nr() < 2 ** 63]
     marks = sorted(fn._sequence_nr() for fn in nodes if "ReverseMark" in type(fn).__name__)
-    assert len(marks) == 6  # an input and an output mark a call
+    assert len(marks) == 2 * ENGINE_CALLS[path]  # an input and an output mark a call
     order = []
     for fn in nodes:
         fn.register_prehook(lambda grads, seq=fn._sequence_nr(): order.append(seq))

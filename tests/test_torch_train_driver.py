@@ -383,7 +383,10 @@ def test_profile_hook_of_cz_pretrain_writes_a_trace_and_its_spans(monkeypatch, t
         summary = _json.load(f)
     assert set(summary["spans"]) == {"step", "data_forward", "residual", "engine", "backward",
                                      "engine.bwd", "optimizer"}
-    assert summary["spans"]["engine"]["count"] == 3
+    # the residual on the model's jet: the data forward's engine call and
+    # the jet's
+    assert log.lines.count("residual path: jet") == 1
+    assert summary["spans"]["engine"]["count"] == 2
     assert summary["spans"]["step"]["rows"] == 8 and summary["spans"]["step"]["ms"] > 0
     assert summary["edges"][0] == ["step", "begin"] and summary["edges"][-1] == ["step", "end"]
     with open(trace_dir / trace_name) as f:
