@@ -8,17 +8,21 @@ A run, in order: TF32 off (as the port runs); the cell's system built from
 its configuration's and traffic mix's files, its weights and inputs drawn
 on the device from ``--seed``; its first steps through the window's own
 call (the warm-up and the CUDA graph's capture, and the readings that the
-reference is held to); then ``--seconds`` of steps back to back, each
-followed by a CUDA event. With ``--trace 1`` a profiled stretch of replays
-and one profiled eager step (with the spans that ``spans/<system>/`` names
-around their calls) follow the window. Each metric of the cell (end to end
-with ``--trace 0``, per layer with ``--trace 1``) is read by its own
-reader, ``metrics/<name>.py``. Then the program is freed and the plain
-reference (``reference/<config>.py``) follows the same first steps from the
-same weights and inputs. The last line of standard output is one JSON
-object: ``correct``, ``attempted``, ``failed``, ``metrics``, ``device``
-(and ``breakdown`` with ``--trace 1``), and last ``checks``, the numbers
-compared, each beside its limit, which also end standard error.
+reference is held to) and the traffic's warm replays, which end the
+set-up; more replays until the card launches graph nodes at its fast level
+again (``lib/launch.py``, read by a probe graph before the program runs; the
+wait is reported apart, as ``launch``); then ``--seconds`` of steps back to
+back, each followed by a CUDA event. With ``--trace 1`` a profiled stretch
+of replays and one profiled eager step (with the spans that
+``spans/<system>/`` names around their calls) follow the window. Each
+metric of the cell (end to end with ``--trace 0``, per layer with
+``--trace 1``) is read by its own reader, ``metrics/<name>.py``. Then the
+program is freed and the plain reference (``reference/<config>.py``)
+follows the same first steps from the same weights and inputs. The last
+line of standard output is one JSON object: ``correct``, ``attempted``,
+``failed``, ``metrics``, ``device`` (and ``breakdown`` with ``--trace
+1``), ``launch`` on the card, and last ``checks``, the numbers compared,
+each beside its limit, which also end standard error.
 """
 
 import time
@@ -77,7 +81,7 @@ def measure(cell, seed: int, seconds: float, trace: bool, device, fault=None,
     CPU at a small size)."""
     import torch
 
-    from lib import compare, spec, window
+    from lib import compare, launch, spec, window
     from lib import trace as tr
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -89,6 +93,9 @@ def measure(cell, seed: int, seconds: float, trace: bool, device, fault=None,
             torch.cuda.synchronize()
 
     marks = [("start", t_start), ("imported", time.perf_counter())]
+    # the card's fast launch level, read before the program has run
+    probe = launch.Probe(device) if cuda else None
+    marks.append(("the launch probe", time.perf_counter()))
     entry = spec.system(cell.traffic)
     marks.append(("the port imported", time.perf_counter()))
     system = entry.build(cell.config, cell.traffic, seed, device)
@@ -97,15 +104,23 @@ def measure(cell, seed: int, seconds: float, trace: bool, device, fault=None,
     mend = system.plant(fault) if fault else None
     prog = system.compared_steps()
     marks.append(("compared steps", time.perf_counter()))
-    # a fresh capture replays slower for its first tens of replays (0.35 us a
-    # graph node); the traffic's warm replays let it settle before the window
     for _ in range(cell.traffic["warm_replays"]):
         system.step()
     sync()
-    setup_s = time.perf_counter() - t_start
-    marks.append(("replays", t_start + setup_s))
+    marks.append(("replays", time.perf_counter()))
+    setup_s = marks[-1][1] - t_start
     print("set-up s: " + ", ".join(f"{b[0]} {b[1] - a[1]:.3f}" for a, b in zip(marks, marks[1:])),
           file=sys.stderr)
+    # for a while after a capture the card can launch every graph node about
+    # 0.2 us slower (lib/launch.py): a state of the card that ends at a random
+    # moment, not work of the program. The window waits for the fast level;
+    # the wait is reported apart from the set-up.
+    settled = launch.settle(system.step, probe, launch.CAP_S) if probe is not None else None
+    if settled is not None:
+        print(f"launch mode: {settled['wait_s']:.3f} s and {settled['steps']} steps to the "
+              f"{'fast level' if settled['fast'] else 'cap, STILL SLOW'}: probe "
+              f"{settled['probe_us']:.4f} us a node against {settled['fast_us']:.4f}",
+              file=sys.stderr)
     setup_peak = torch.cuda.max_memory_allocated() if cuda else 0
     if cuda:
         torch.cuda.reset_peak_memory_stats()
@@ -155,6 +170,8 @@ def measure(cell, seed: int, seconds: float, trace: bool, device, fault=None,
         result["device"]["window_s"] = replay["window_us"] * 1e-6
         result["breakdown"] = {"device_ops": [list(kv) for kv in replay["device_ops"]],
                                "idle_gaps": replay["idle_gaps"]}
+    if settled is not None:
+        result["launch"] = settled
     # the numbers compared, each beside its limit, under a key of their own
     # that comes last in the result line (and on standard error's last lines)
     result["checks"] = {k: {"value": values[k], "limit": limits[k]} for k in compare.NAMES}

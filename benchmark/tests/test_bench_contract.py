@@ -1,4 +1,5 @@
-"""BENCHMARK.json against the files the harness finds by name."""
+"""BENCHMARK.json against the files the harness and its tests find by
+name."""
 
 import json
 import os
@@ -41,3 +42,20 @@ def test_every_span_names_a_call_of_its_system():
 def test_configuration_files_are_the_named_ones():
     for c in BENCH["configs"]:
         assert json.load(open(os.path.join(ROOT, c["file"])))["name"] == c["name"]
+
+
+def test_every_configuration_and_mix_has_its_test_sizes():
+    from conftest import sizes_file
+
+    for kind, key in (("configs", "config"), ("traffic", "traffic")):
+        for name in {w[key] for w in BENCH["workloads"]}:
+            path = sizes_file(kind, name)
+            assert os.path.exists(path), f"add {os.path.relpath(path, ROOT)}"
+            found = json.load(open(path))
+            assert set(found) == {"small", "on_card"}, path
+
+
+def test_metrics_name_only_cells_that_exist():
+    cells = {w["name"] for w in BENCH["workloads"]}
+    for m in BENCH["end_to_end"] + BENCH["per_layer"]:
+        assert set(m.get("workloads", ())) <= cells, m["name"]

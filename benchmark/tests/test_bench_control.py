@@ -1,29 +1,23 @@
 """The control, on the card: the plain reference computed with TF32 on (the
 nearest precision below the configurations' float32 with TF32 off) in the
 program's place has to come out as not correct, while the program itself
-comes out correct. At a size a test run holds; the cell's own size is
-``calibrate.py``'s (its readings are in PERF.md)."""
+comes out correct. Every cell of ``BENCHMARK.json``, at its ``on_card``
+test sizes (``sizes/``); the cell's own size is ``calibrate.py``'s (its
+readings are in PERF.md)."""
 
 import pytest
 import torch
 
-from conftest import small_cell
+from conftest import WORKLOADS, small_cell
 from lib import compare
 from lib.spec import system
 
-ON_CARD = {  # larger than the CPU's small sizes, still quick
-    "cz16-pretrain-b256": ({"n_qubits": 10, "trunk_width": 128}, {"batch": 64}),
-}
-
 
 @pytest.mark.chip
-@pytest.mark.parametrize("name", sorted(ON_CARD))
+@pytest.mark.parametrize("name", sorted(WORKLOADS))
 @pytest.mark.parametrize("seed", [2**31 + 101, 2**31 + 202, 2**31 + 303])
 def test_tf32_reference_is_not_correct(card, name, seed):
-    cell = small_cell(name)
-    cfg, traffic = ON_CARD[name]
-    cell.config.update(cfg)
-    cell.traffic.update(traffic)
+    cell = small_cell(name, "on_card")
     torch.backends.cuda.matmul.allow_tf32 = False
     s = system(cell.traffic).build(cell.config, cell.traffic, seed, card)
     prog = s.compared_steps()

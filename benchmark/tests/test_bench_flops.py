@@ -1,7 +1,10 @@
-"""The gate-level counts against hand counts on 2- and 3-qubit circuits."""
+"""The gate-level counts against hand counts on 2- and 3-qubit circuits,
+and every cell's model held to the widths that the counts use."""
 
 import pytest
+import torch
 
+from conftest import WORKLOADS
 from lib import flops
 
 
@@ -42,13 +45,43 @@ def test_the_configurations_circuit():
     assert flops.circuit_flops(cz.circuit_gates(3, 1), 3) == 6 * 128 + 3 * 48 + 3 * 12
 
 
-@pytest.mark.parametrize("size", ["small", "full"])
-def test_the_counted_widths_are_the_models(size):
+def _at(name: str, size: str):
     from conftest import small_cell
-    from lib.spec import load, system
+    from lib.spec import load
+
+    return small_cell(name) if size == "small" else load(name)
+
+
+@pytest.mark.parametrize("size", ["small", "full"])
+@pytest.mark.parametrize("name", sorted(WORKLOADS))
+def test_the_counted_widths_are_the_models(monkeypatch, name, size):
+    # each cell's own system holds the model it builds to the widths that
+    # its configuration's reference states (and the counts use): the build
+    # passes, and stops once a stated width is one wider than the model's
+    from lib import spec
+
+    cell = _at(name, size)
+    cpu = torch.device("cpu")
+    spec.system(cell.traffic).build(cell.config, cell.traffic, 5, cpu)
+    stated = spec.reference
+
+    def one_wider(config_name):
+        ref = stated(config_name)
+        dims = ref.mlp_dims
+        ref.mlp_dims = lambda cfg: {k: v[:-1] + (v[-1] + 1,) for k, v in dims(cfg).items()}
+        return ref
+
+    monkeypatch.setattr(spec, "reference", one_wider)
+    with pytest.raises(SystemExit):
+        spec.system(cell.traffic).build(cell.config, cell.traffic, 5, cpu)
+
+
+@pytest.mark.parametrize("size", ["small", "full"])
+def test_the_hand_counted_widths_of_cz_hybrid16q(size):
+    from lib.spec import system
     from qcpinn_tpu_torch.models.czochralski import Hybrid16QPINN
 
-    cell = small_cell("cz16-pretrain-b256") if size == "small" else load("cz16-pretrain-b256")
+    cell = _at("cz16-pretrain-b256", size)
     cfg = cell.config
     model = Hybrid16QPINN(cfg["n_qubits"], cfg["n_layers"], remat=False,
                           width=cfg["trunk_width"], device="cpu")

@@ -7,6 +7,9 @@ import os
 import subprocess
 import sys
 
+import pytest
+
+from conftest import WORKLOADS
 from lib.spec import BENCH_DIR
 
 ROOT = os.path.dirname(BENCH_DIR)
@@ -28,14 +31,15 @@ PRELUDE = (f"import sys; sys.path[:0] = [{os.path.join(BENCH_DIR, 'reference')!r
            f"{BENCH_DIR!r}, {ROOT!r}]\n")
 
 
-def test_a_run_loads_no_jax():
-    # a whole run at a small size on the CPU, traced, through the harness's
-    # own entry; then every module it holds
+@pytest.mark.parametrize("cell", sorted(WORKLOADS))
+def test_a_run_loads_no_jax(cell):
+    # a whole run of each cell at a small size on the CPU, traced, through
+    # the harness's own entry; then every module it holds
     code = PRELUDE + (
         "import torch, run\n"
         "sys.path.insert(0, " + repr(os.path.join(BENCH_DIR, "tests")) + ")\n"
         "from conftest import small_cell\n"
-        "run.measure(small_cell('cz16-pretrain-b256'), 7, 0.1, True, torch.device('cpu'))\n"
+        f"run.measure(small_cell({cell!r}), 7, 0.1, True, torch.device('cpu'))\n"
         "assert not run.forbidden_modules(), run.forbidden_modules()\n")
     names = _loaded(code)
     assert "qcpinn_tpu_torch" in names  # the port did run
