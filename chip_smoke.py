@@ -179,9 +179,22 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                ms a step and launches; (e) the two JAX
                records' SPSA commands (artifacts/spsa_ab_*.json) at 300
                epochs, kernel counters 0.
-6g. cz         the Czochralski flagship (of the package's kernels only the
-               finetune's keyed shot sampler on this path; every other
-               counter 0): ``cli.main(["cz", "--phase", "eval",
+6g0. cz_wire_group the Cz engine's wire-group kernels (ops/wire_group.py,
+               csrc/wire_group.cu, built here) at the cells' shapes: the
+               pretrain jet's [1280, 2^16] with a shared U at each group
+               (w0 = 0, 4, 8, 12), the data forward's [256, 2^16] with a U
+               a row, the finetune's vmapped chunk [32 x 8, 2^16] with a U
+               an evaluation and its unbatched first group (row repeats),
+               forward and reverse; 10 qubits (groups of 4, 4, 2 wires).
+               Each output against complex128, the kernel within
+               WG_ERR_FACTOR times the einsum's own error (its sums run in
+               another order than cuBLAS's); every reverse twice bit-equal;
+               the vmap rule against one call an evaluation; the cells'
+               shapes timed beside the plain versions, the einsum and its
+               autograd reverse, with the byte bound at 3.35 TB/s.
+6g. cz         the Czochralski flagship (of the package's kernels the
+               wire-group pair, and the finetune's keyed shot sampler, on
+               this path; every other counter 0): ``cli.main(["cz", "--phase", "eval",
                ...])`` of artifacts/cz_real_wide384_400 (--trunk-width 384)
                and cz_real_balanced on data/cz_melt_raw.txt, each field's
                rel-L2 within 1% and val_mse within 2% of JAX's own
@@ -189,7 +202,11 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                records, 1.1-2.3x below it, beside); the pretrain step of the
                wide384_400 record's command (16q, trunk 384, B = 256,
                balanced, physics engaged) graphed against eager over 5 steps,
-               bit-equal (losses, parameters, EMA state), ms a step, a
+               bit-equal (losses, parameters, EMA state), the wire-group
+               launches of the captured step (20 forward: 8 the jet's, 12
+               the data forward's; 20 reverse), the cuBLAS complex GEMMs
+               (``cf32``) left in the step (the gates' and their krons'),
+               ms a step, a
                profile of each (launches, device ms), the peak
                memory of each, and the peak at B = 512 with remat (the
                forward-mode residual in chunks of 256 rows); head- and
@@ -197,7 +214,11 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                4096 --calib-size 8 with the ft_noise record's noise, graphed
                against eager (bit-equal losses and parameters over 10 sampled
                steps, the keyed draws advanced inside the graph), every
-               sampler call a launch of the keyed-shots kernel, ms a step,
+               sampler call a launch of the keyed-shots kernel, 12
+               wire-group forward launches a circuit call in the captured
+               step (1 call at head scope, 10 at full: the forward and 9
+               vmap chunks of 32 shifted evaluations), none reverse, the
+               ``cf32`` GEMMs left in the step, ms a step,
                the circuit evaluations and shots a step (289 and 151,519,232
                in full scope) and the leaves that moved; the kernel's counts
                equal to the plain path's, count for count, at the full
@@ -233,7 +254,8 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                factor 2 of the record's (2.697e-4); a shorter spsa-split run
                through ``cli crystal`` (2,669 parameters, 36 quantum).
 6j. parallel   the ('data', 'amp') mesh as a one-rank NCCL
-               world (no kernel; every counter 0): ``cli train`` on CLI_RUNS' DV
+               world (every counter 0 but the Cz engine's wire-group
+               pair's): ``cli train`` on CLI_RUNS' DV
                cascade 4q config, its graphed step with the mesh against
                without (5 steps, losses and parameters; ms a step of each in
                turns; the collectives' counters: the gradient all-reduce
@@ -285,7 +307,7 @@ Measurements beside the smoke test:
     python3 chip_smoke.py --cli-train          # device, cli_train, north_star_classical
     python3 chip_smoke.py --hw-modes           # the JAX SPSA records at 3000 epochs,
                                                # parameter-shift at --shots 1024
-    python3 chip_smoke.py --cz-phase           # device, cz
+    python3 chip_smoke.py --cz-phase           # device, cz_wire_group, cz
     python3 chip_smoke.py --cz                 # JAX's Cz records: the six checkpoints'
                                                # evals, the three finetune records'
                                                # commands, the balanced pretrain
@@ -1476,9 +1498,9 @@ class CliStepper:
 
 
 def _counted_modules():
-    from qcpinn_tpu_torch.ops import block_kernel, loop_kernel, measure, sv_kernel
+    from qcpinn_tpu_torch.ops import block_kernel, loop_kernel, measure, sv_kernel, wire_group
 
-    return block_kernel, loop_kernel, sv_kernel, measure
+    return block_kernel, loop_kernel, sv_kernel, measure, wire_group
 
 
 def kernel_counters():
@@ -1490,6 +1512,12 @@ def kernel_counters():
 def reset_kernel_counters():
     for mod in _counted_modules():
         mod.reset_launches()
+
+
+def split_wire_group(counters):
+    """(the counters but the Cz engine's wire-group kernels', theirs)."""
+    wg = {k: v for k, v in counters.items() if k.startswith("wire_group.")}
+    return {k: v for k, v in counters.items() if k not in wg}, wg
 
 
 def cli_train_phase(dev, smi):
@@ -2074,6 +2102,25 @@ CZ_FT_RECORDS = ("artifacts/cz_real_finetune", "artifacts/cz_real_finetune_full"
                  "artifacts/cz_real_wide384_400_ft_noise")
 CZ_PRETRAIN_RECORD = "artifacts/cz_real_balanced"
 CZ_PRETRAIN_MINUTES = 20
+CZ_FT_CHUNK = 32  # the shift rules' evaluations a vmap chunk (make_hw_apply_cz's default)
+# the wire-group kernels (ops/wire_group.py) at the cells' shapes: the
+# pretrain jet's 5 x 256 rows (shared U), the data forward's 256 rows (the
+# encode's per-row U), the finetune's vmapped chunk of 32 evaluations of 8
+# rows (a U an evaluation; the encode's first group on an unbatched |0...0>,
+# folded as row repeats), and 10 qubits (groups of 4, 4 and 2 wires)
+WG_QUBITS = 16
+WG_JET_ROWS, WG_DATA_ROWS, WG_VMAP = 5 * 256, 256, (CZ_FT_CHUNK, 8)
+WG_SMALL = (10, 256)
+# the kernel's sums run in another order than cuBLAS's complex GEMM: each is
+# held against complex128, the kernel to at most WG_ERR_FACTOR times the
+# einsum's own error (what the engine ran, TF32 off), or WG_ERR_FLOOR of
+# max|ref| where the einsum is exact
+WG_ERR_FACTOR, WG_ERR_FLOOR = 2.0, 1e-6
+# the wire-group launches of one host call of each cell's step: the
+# pretrain's jet (8 products) and data forward (12), each with its reverse;
+# the finetune's 12 forward products a circuit call, no reverse
+WG_PRODUCTS_PER_CALL = 12
+WG_PRETRAIN_LAUNCHES = {"wire_group_fwd": 20, "wire_group_bwd": 20}
 
 
 def cz_cli(argv):
@@ -2099,14 +2146,16 @@ def cz_eval(ckpt, flags, out_root):
     """``cz --phase eval`` of ``ckpt`` on the real melt data: the metrics
     against JAX's own evaluation of the checkpoint (CZ_JAX_CPU_EVAL: each
     field's rel-L2 within 1% relative, val_mse within 2%) and, for the
-    record, against the checkpoint's TPU eval record; the kernel counters 0
-    (no kernel of the package is on the Cz path)."""
+    record, against the checkpoint's TPU eval record; of the kernel
+    counters only the wire-group forward's moved (the circuit's group
+    products, no reverse)."""
     reset_kernel_counters()
     rc, text, seconds = cz_cli(["cz", "--phase", "eval", "--data", CZ_DATA, "--load", ckpt,
                                 *flags, "--no-plots", "--output-dir", out_root])
-    counters = kernel_counters()
-    if rc != 0 or any(counters.values()):
-        raise SystemExit(f"cz eval {ckpt}: exit code {rc}, kernel counters {counters}")
+    counters, wg = split_wire_group(kernel_counters())
+    if (rc != 0 or any(counters.values()) or not wg["wire_group.wire_group_fwd"]
+            or wg["wire_group.wire_group_bwd"]):
+        raise SystemExit(f"cz eval {ckpt}: exit code {rc}, kernel counters {counters}, {wg}")
     metrics = json.loads([ln for ln in text.splitlines() if ln.startswith("{")][-1])
     jax_cpu = CZ_JAX_CPU_EVAL[ckpt]
     ratio = {k: metrics[k] / jax_cpu[k] for k in jax_cpu}
@@ -2146,6 +2195,26 @@ def cz_pretrain_epoch(dev, tree, X, Y, stats, batch, remat, mesh=None):
     return model, ep
 
 
+def complex_gemms(step):
+    """The cuBLAS complex GEMM kernels (``cf32``) one call of ``step`` runs
+    on the card: their launches and device ms. The state's group products
+    are the wire-group kernels (``LAUNCHES`` shows every one); what is left
+    are the products of the 2 x 2 gates and their kron chain into the
+    groups' 16 x 16 unitaries, and their reverse."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as prof
+
+    torch.cuda.synchronize()
+    with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        step()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in p.events()
+          if e.device_type == DeviceType.CUDA and "cf32" in e.name]
+    return {"launches": len(us), "device_ms": sum(us) / 1e3,
+            "max_launch_us": max(us, default=0.0)}
+
+
 class _Stepper:
     """``step()`` for ``bench.profile``."""
 
@@ -2166,6 +2235,7 @@ def cz_pretrain(dev):
 
     from qcpinn_tpu_torch import bench
     from qcpinn_tpu_torch.data.cz_loader import DataStats, load_cz_data
+    from qcpinn_tpu_torch.ops import wire_group
 
     restored = cz_tree(CZ_CKPT)
     stats = DataStats.from_dict(restored["stats"])
@@ -2200,7 +2270,20 @@ def cz_pretrain(dev):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     got_model, got = cz_pretrain_epoch(dev, tree, X, Y, stats, b, False)
-    l_got = steps(got, CZ_STEPS)
+    warm = got.captured.warmup
+    l_got = [steps(got, warm)]
+    # the wire-group launches of the captured step: every launch of the
+    # step's products goes through Python once, at its capture
+    launched = dict(wire_group.LAUNCHES)
+    l_got.append(steps(got, 1, warm))
+    row["wire_group_launches_captured_step"] = {
+        k: wire_group.LAUNCHES[k] - launched[k] for k in launched}
+    l_got.append(steps(got, CZ_STEPS - warm - 1, warm + 1))
+    l_got = torch.cat(l_got)
+    if row["wire_group_launches_captured_step"] != WG_PRETRAIN_LAUNCHES:
+        raise SystemExit(f"cz pretrain: wire-group launches of the captured step "
+                         f"{row['wire_group_launches_captured_step']}, not "
+                         f"{WG_PRETRAIN_LAUNCHES}")
     torch.cuda.synchronize()
     row["graph_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     want = dict(ref_model.named_parameters())
@@ -2224,6 +2307,7 @@ def cz_pretrain(dev):
     row["graph_ms_per_step"] = 1e3 * (time.perf_counter() - t0) / GRAPH_TIME_STEPS
     row["graph"] = bench.profile(_Stepper(lambda: steps(got, 1, CZ_STEPS)),
                                  row["graph_ms_per_step"], steps=3, top=6)
+    row["complex_gemms"] = complex_gemms(lambda: steps(got, 1, CZ_STEPS))
     row["epoch_s_at_graph_rate"] = row["graph_ms_per_step"] * (len(X) // b) / 1e3
     del ref, got, ref_model, got_model
     torch.cuda.empty_cache()
@@ -2262,7 +2346,7 @@ def cz_finetune(dev):
     from qcpinn_tpu_torch.bridge import params_from_jax
     from qcpinn_tpu_torch.data.cz_loader import DataStats, load_cz_data
     from qcpinn_tpu_torch.models.czochralski import Hybrid16QPINN
-    from qcpinn_tpu_torch.ops import measure
+    from qcpinn_tpu_torch.ops import measure, wire_group
     from qcpinn_tpu_torch.train import cz_pipeline as cp
 
     restored = cz_tree(CZ_CKPT)
@@ -2284,7 +2368,22 @@ def cz_finetune(dev):
         t0 = time.perf_counter()
         l_ref = [float(ref.step()) for _ in range(CZ_FT_STEPS)]
         eager_ms = 1e3 * (time.perf_counter() - t0) / CZ_FT_STEPS
-        l_got = [float(got.run()) for _ in range(CZ_FT_STEPS)]
+        l_got = []
+        for _ in range(CZ_FT_STEPS):
+            capture = (got.captured.graph is None
+                       and got.captured.eager_steps >= got.captured.warmup)
+            wg_before = dict(wire_group.LAUNCHES)
+            l_got.append(float(got.run()))
+            if capture:
+                wg_step = {k: wire_group.LAUNCHES[k] - wg_before[k] for k in wg_before}
+        # the circuit calls of a step: the forward's, and at full scope the
+        # shift rules' chunks of evaluations
+        circuit_calls = 1 if scope == "head" else 1 + math.ceil(
+            (got.evals_per_step - 1) / CZ_FT_CHUNK)
+        want_wg = {"wire_group_fwd": WG_PRODUCTS_PER_CALL * circuit_calls, "wire_group_bwd": 0}
+        if wg_step != want_wg:
+            raise SystemExit(f"cz finetune {scope}: wire-group launches of the captured step "
+                             f"{wg_step}, not {want_wg} ({circuit_calls} circuit calls)")
         want = dict(ref_model.named_parameters())
         bit_equal = l_got == l_ref and all(torch.equal(p, want[k])
                                            for k, p in got_model.named_parameters())
@@ -2310,8 +2409,10 @@ def cz_finetune(dev):
         out[scope] = {
             "steps": CZ_FT_STEPS, "bit_equal": bit_equal, "mean_loss": st.fmean(l_got),
             "keyed_shots_launches": launches, "step_calls": calls,
+            "circuit_calls_per_step": circuit_calls, "wire_group_launches_captured_step": wg_step,
             "eager_ms_per_step": eager_ms, "graph_ms_per_step": graph_ms,
             "graph": bench.profile(_Stepper(got.run), graph_ms, steps=3, top=6),
+            "complex_gemms": complex_gemms(got.run),
             "circuit_evals_per_step": got.evals_per_step,
             "shots_per_step": got.shots_per_step, "leaves_moved": moved}
         del pair, ref, got, ref_model, got_model
@@ -2342,12 +2443,142 @@ def cz_finetune(dev):
     return out
 
 
-def cz_phase(dev, smi):
-    """Phase ``cz``: ``cz --phase eval`` of the two records' checkpoints,
-    the pretrain step and the finetune steps; every kernel counter 0 but
-    the finetune's launches of the keyed shot sampler."""
+def wg_err(got, ref):
+    return float((got.to(ref.dtype) - ref).abs().max() / ref.abs().max())
+
+
+def wg_case(wg, tag, s, u, n, w0, reps=1, backward=True, times=False, card_peaks=None):
+    """One shape of the wire-group kernels: the forward (and the reverse,
+    twice, bit-equal) against complex128, beside the einsum's own error
+    (WG_ERR_FACTOR); with ``times`` each direction timed beside its plain
+    version and the engine's einsum (forward; autograd reverse alone), with
+    its byte bound."""
     import torch
 
+    n_out = s.shape[0] * reps << n
+    s64, u64 = s.to(torch.complex128), u.to(torch.complex128)
+    row = {"case": tag, "rows": s.shape[0] * reps, "state_rows": s.shape[0], "n": n, "w0": w0,
+           "k": u.shape[-1].bit_length() - 1, "unitaries": u.shape[0]}
+    ref = wg.product_plain(s64, u64, n, w0, reps)
+    errs = {"fwd": (wg_err(wg._product_cuda(s, u, n, w0, reps), ref),
+                    wg_err(wg.product_plain(s, u, n, w0, reps), ref))}
+    del ref
+    if backward:
+        gen = torch.Generator(device=s.device).manual_seed(11)
+        g = torch.randn((s.shape[0] * reps, 1 << n), dtype=s.dtype, device=s.device,
+                        generator=gen)
+        first = wg._vjp_cuda(g, s, u, n, w0, reps, True, True)
+        again = wg._vjp_cuda(g, s, u, n, w0, reps, True, True)
+        row["bwd_bit_equal"] = all(torch.equal(a, b) for a, b in zip(first, again))
+        want = wg.vjp_plain(g.to(torch.complex128), s64, u64, n, w0, reps, True, True)
+        s_, u_ = s.clone().requires_grad_(), u.clone().requires_grad_()
+        lib = torch.autograd.grad(wg.product_plain(s_, u_, n, w0, reps), (s_, u_), g)
+        errs["grad_s"] = (wg_err(first[0], want[0]), wg_err(lib[0], want[0]))
+        errs["grad_u"] = (wg_err(first[1], want[1]), wg_err(lib[1], want[1]))
+        if not row["bwd_bit_equal"]:
+            raise SystemExit(f"wire_group {tag}: two reverses differ")
+        del want, lib, again, s_, u_
+    del s64, u64
+    row["err_kernel_einsum"] = errs
+    bad = {k: v for k, v in errs.items() if not v[0] <= max(WG_ERR_FACTOR * v[1], WG_ERR_FLOOR)}
+    if bad:
+        raise SystemExit(f"wire_group {tag}: kernel error against complex128 over "
+                         f"{WG_ERR_FACTOR} x the einsum's: {bad}")
+    if times:
+        fwd_bytes = 8 * (s.numel() + n_out)
+        row["fwd"] = {**timed(lambda: wg._product_cuda(s, u, n, w0, reps)),
+                      "plain_ms": time_ms(lambda: wg.product_plain(s, u, n, w0, reps), reps=5),
+                      **timed(lambda: wg.product_plain(s, u, n, w0, reps), prefix="library_"),
+                      "bound_ms": fwd_bytes / card_peaks[1] * 1e3, "bound_by": "bytes"}
+        if backward:
+            s_, u_ = s.clone().requires_grad_(), u.clone().requires_grad_()
+            row["bwd"] = {
+                **timed(lambda: wg._vjp_cuda(g, s, u, n, w0, reps, True, True)),
+                "plain_ms": time_ms(lambda: wg.vjp_plain(g, s, u, n, w0, reps, True, True),
+                                    reps=5),
+                **autograd_timed(lambda: (wg.product_plain(s_, u_, n, w0, reps), (s_, u_)),
+                                 g, graph=False),
+                "bound_ms": 8 * (s.numel() + 2 * n_out) / card_peaks[1] * 1e3,
+                "bound_by": "bytes"}
+    torch.cuda.empty_cache()
+    return row
+
+
+def cz_wire_group(dev, smi):
+    """Phase ``cz_wire_group``: the wire-group kernels (``ops/wire_group.py``,
+    built here) at the cells' shapes against complex128 beside the einsum
+    they replace, every reverse twice bit-equal, the cells' shapes timed
+    (WG_* above)."""
+    import torch
+
+    from qcpinn_tpu_torch.ops import cuda_build
+    from qcpinn_tpu_torch.ops import wire_group as wg
+
+    t0 = time.perf_counter()
+    _, build_s, report = cuda_build.build("wire_group")
+    card_peaks = peaks(torch.cuda.get_device_name(0))
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def state(rows, n):
+        st = torch.randn((rows, 1 << n), dtype=torch.complex64, device=dev, generator=gen)
+        return st / st.abs().pow(2).sum(1, keepdim=True).sqrt()
+
+    def unitary(count, k):
+        a = torch.randn((count, 1 << k, 1 << k), dtype=torch.complex64, device=dev,
+                        generator=gen)
+        return torch.linalg.qr(a)[0]
+
+    n = WG_QUBITS
+    groups = [(w0, 4) for w0 in range(0, n, 4)]
+    rows = []
+    s = state(WG_JET_ROWS, n)
+    for w0, k in groups:
+        rows.append(wg_case(wg, "jet_shared", s, unitary(1, k), n, w0, times=True,
+                            card_peaks=card_peaks))
+    del s
+    s = state(WG_DATA_ROWS, n)
+    for w0, k in groups:
+        rows.append(wg_case(wg, "data_per_row", s, unitary(WG_DATA_ROWS, k), n, w0,
+                            times=True, card_peaks=card_peaks))
+    e, b = WG_VMAP
+    s = state(e * b, n)
+    for w0, k in groups:
+        rows.append(wg_case(wg, "vmap_per_eval", s, unitary(e, k), n, w0, backward=False,
+                            times=True, card_peaks=card_peaks))
+    s0 = state(b, n)
+    rows.append(wg_case(wg, "vmap_repeats", s0, unitary(e * b, 4), n, 0, reps=e,
+                        backward=True, times=True, card_peaks=card_peaks))
+    # the vmap rule itself at the finetune's chunk against one call an evaluation
+    u_e = unitary(e, 4)
+    got = torch.func.vmap(lambda st, uu: wg.product(st, uu, n, 4))(s.reshape(e, b, -1), u_e)
+    want = torch.stack([wg.product_plain(s[i * b:(i + 1) * b], u_e[i:i + 1], n, 4)
+                        for i in range(e)])
+    vmap_err = wg_err(got, want.to(torch.complex128))
+    if not vmap_err <= WG_ERR_FLOOR:
+        raise SystemExit(f"wire_group: the vmap rule differs from one call an evaluation "
+                         f"by {vmap_err}")
+    del s, s0, got, want
+    n_small, r_small = WG_SMALL
+    s = state(r_small, n_small)
+    for w0, k in [(0, 4), (4, 4), (8, 2)]:
+        for kind, count in (("shared", 1), ("per_row", r_small)):
+            rows.append(wg_case(wg, f"10q_{kind}", s, unitary(count, k), n_small, w0))
+    torch.cuda.empty_cache()
+    emit({"phase": "cz_wire_group", "build_s": build_s, "registers": ptxas_registers(report),
+          "rows": rows, "vmap_rule_err": vmap_err,
+          "tol": f"kernel error against complex128 <= {WG_ERR_FACTOR} x the einsum's "
+                 f"(or {WG_ERR_FLOOR}); reverses bit-equal",
+          "seconds": time.perf_counter() - t0, "card": smi})
+
+
+def cz_phase(dev, smi):
+    """Phases ``cz_wire_group`` and ``cz``: ``cz --phase eval`` of the two
+    records' checkpoints, the pretrain step and the finetune steps; every
+    kernel counter 0 but the wire-group pair's and the finetune's launches
+    of the keyed shot sampler."""
+    import torch
+
+    cz_wire_group(dev, smi)
     out_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "runs", "chip_smoke")
     os.makedirs(out_root, exist_ok=True)
     t0 = time.perf_counter()
@@ -2359,22 +2590,25 @@ def cz_phase(dev, smi):
     t_eval = time.perf_counter() - t0
     reset_kernel_counters()
     pretrain = cz_pretrain(dev)
-    counters = kernel_counters()
-    if any(counters.values()):
-        raise SystemExit(f"cz pretrain: kernels launched on this path: {counters}")
+    counters, wg = split_wire_group(kernel_counters())
+    if any(counters.values()) or not all(wg.values()):
+        raise SystemExit(f"cz pretrain: kernels launched on this path: {counters}, {wg}")
     t_pre = time.perf_counter() - t0 - t_eval
+    reset_kernel_counters()
     finetune = cz_finetune(dev)
-    counters = kernel_counters()
+    counters, wg = split_wire_group(kernel_counters())
     keyed = counters.pop("measure.keyed_shots")
-    if any(counters.values()) or not keyed:
+    if (any(counters.values()) or not keyed or not wg["wire_group.wire_group_fwd"]
+            or wg["wire_group.wire_group_bwd"]):
         raise SystemExit(f"cz finetune: kernels launched on this path: {counters}, "
-                         f"keyed shots {keyed}")
+                         f"keyed shots {keyed}, {wg}")
     torch.cuda.empty_cache()
     emit({"phase": "cz", "eval": evals, "pretrain": pretrain, "finetune": finetune,
           "seconds": {"eval": t_eval, "pretrain": t_pre,
                       "finetune": time.perf_counter() - t0 - t_eval - t_pre},
           "tol": {"fields_rel": CZ_FIELD_RTOL, "val_mse_rel": CZ_MSE_RTOL},
-          "kernel_counters": f"all {len(counters)} others at 0, measure.keyed_shots {keyed}",
+          "kernel_counters": f"all {len(counters)} others at 0, measure.keyed_shots {keyed}, "
+                             f"finetune {wg}",
           "card": smi})
 
 
@@ -2475,8 +2709,9 @@ def cz_device():
 
 
 def cz_phase_check():
-    """``--cz-phase``: the device phase's checks, then the cz phase alone
-    (the one kernel built is the finetune's keyed shot sampler)."""
+    """``--cz-phase``: the device phase's checks, then the cz_wire_group and
+    cz phases alone (the kernels built are the wire-group pair and the
+    finetune's keyed shot sampler)."""
     t_start = time.perf_counter()
     dev, smi = cz_device()
     cz_phase(dev, smi)
@@ -3208,8 +3443,8 @@ def par_engines(dev, mesh):
 
 def parallel_phase(dev, smi):
     """Phase ``parallel`` (docstring, 6j): the ('data', 'amp') mesh as a
-    one-rank NCCL world at full width; every kernel counter 0 (no kernel of
-    the package on these paths)."""
+    one-rank NCCL world at full width; every kernel counter 0 but the Cz
+    engine's wire-group pair's."""
     import torch
     import torch.distributed as dist
 
@@ -3228,10 +3463,10 @@ def parallel_phase(dev, smi):
                "cz_pretrain": par_cz_pretrain(dev, mesh),
                "cz_eval": par_cz_eval(out_root),
                "engines_12q": par_engines(dev, mesh)}
-        counters = kernel_counters()
+        counters, wg = split_wire_group(kernel_counters())
         if any(counters.values()):
             raise SystemExit(f"parallel: kernels launched on this path: {counters}")
-        row["kernel_counters"] = f"all {len(counters)} at 0"
+        row["kernel_counters"] = f"all {len(counters)} others at 0, the Cz engine's {wg}"
         for tag in ("cli_train", "cz_pretrain"):
             r = row[tag]
             if not r["max_abs_diff"] <= 1e-6 * max(abs(v) for v in r["losses"]):
@@ -3246,8 +3481,8 @@ def parallel_phase(dev, smi):
 
 
 def parallel_check():
-    """``--parallel``: the device checks, then the parallel phase alone (no
-    kernel is built: the path runs none)."""
+    """``--parallel``: the device checks, then the parallel phase alone (the
+    one kernel built is the Cz engine's wire-group pair, at its first use)."""
     import torch
 
     if not torch.cuda.is_available():
@@ -4427,7 +4662,7 @@ def main():
     hw_launches = {k.rsplit(".", 1)[1]: v for k, v in hw_modes_phase(dev, smi).items()}
     torch.cuda.empty_cache()
 
-    # -- 6g. the Czochralski flagship (no kernel on this path) ---------------
+    # -- 6g. the Czochralski flagship (the wire-group pair, the keyed shots) ---
     cz_phase(dev, smi)
     torch.cuda.empty_cache()
     spans_phase(dev, smi)
@@ -4439,7 +4674,7 @@ def main():
     crystal_phase(dev, smi)
     torch.cuda.empty_cache()
 
-    # -- 6j. the parallel layer on a one-rank NCCL world (no kernel) ---------
+    # -- 6j. the parallel layer on a one-rank NCCL world -----------------------
     parallel_phase(dev, smi)
 
     # -- 7-10. the 16q north-star path through the gate-loop kernels ---------

@@ -16,10 +16,11 @@ Architecture:
 
 The circuit is natively batched, as in the JAX package: the per-wire RY
 encoding and the Rot sweep are one 16x16 kron unitary a 4-wire group,
-applied by one complex matmul over the state; the data reupload is one
-diagonal phase with per-sample angles; the CZ brickwork one static phase
-vector. No kernel of the package is on this path (JAX leaves it to XLA's
-matmuls and elementwise ops): plain torch, TF32 off.
+applied to the state by the wire-group product (``ops/wire_group.py``: on
+the card a hand-written kernel each way, where JAX leaves it to XLA's
+einsum); the data reupload is one diagonal phase with per-sample angles;
+the CZ brickwork one static phase vector. The rest is plain torch, TF32
+off.
 
 ``Hybrid16QPINN.jet`` carries the prediction with its first and second
 derivatives along r and z through one pass, the circuit as a jet of five
@@ -39,7 +40,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
-from ..ops import gates, measure
+from ..ops import gates, measure, wire_group
 from ..ops import statevector as sv
 from ..ops.diag_fusion import bit_matrix
 from . import nn_core as nc
@@ -84,13 +85,9 @@ def _kron_chain(mats):
 
 def _apply_wire_group(state, n, wire0, u):
     """Apply a 2^k x 2^k unitary on the adjacent wire group
-    [wire0, wire0+k); u is [G, G] (shared) or [B, G, G] (per-sample)."""
-    g = u.shape[-1]
-    k = g.bit_length() - 1
-    b = state.shape[0]
-    s = state.reshape(b, 1 << wire0, g, 1 << (n - wire0 - k))
-    eq = "bij,bljh->blih" if u.ndim == 3 else "ij,bljh->blih"
-    return torch.einsum(eq, u.to(state.dtype), s).reshape(b, 1 << n)
+    [wire0, wire0+k); u is [G, G] (shared) or [B, G, G] (per-sample). On
+    the card one kernel each way (``ops/wire_group.py``)."""
+    return wire_group.product(state, u.to(state.dtype), n, wire0)
 
 
 def _wire_groups(n: int, k: int = 4):
